@@ -10,28 +10,40 @@ Phases (any failure raises and exits non-zero):
 
 a. print the card's name and power limit (``nvidia-smi``);
 b. build the port's CUDA kernels from ``mtscomp_tpu_torch/csrc``;
-d. make seeded Neuropixels-like recordings (30 kHz, random walks with
-   diff std 6): 32 s x 385 int16 channels, 8 s x 384 channels and
-   8 s x 385 uint16 channels, and compress them with the host codec
-   (ans v2, first-order time diff, no spatial diff);
-c. hold every kernel against its plain PyTorch twin on the card, at the
-   shapes the decode of those files gives it (byte equality), and
-   decode the CPU tests' small geometries on the card;
-e-g. with every launch count set to 0, decode the three files through
+d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks) and
+   compress them with the host codec (ans v2):
+   - the fuse8 path: random walks with diff std 6, 32 s x 385 int16
+     channels, 8 s x 384 channels and 8 s x 385 uint16 channels;
+   - the generic path: 32 s x 385 int16 channels of the same walk with
+     spikes (a -60, -90, +150 step over 3 samples, 5 per channel per
+     second), which code both byte planes;
+   - the branches, 2 s each at 385 channels: second-order time diff on
+     the fuse8 route (an LFP-like band) and the generic route, C order,
+     spatial diff, flags bit6 without the tail packing, uint8, int8,
+     int32, bitcast float32 under a second-order diff, a RAW low plane,
+     and tables from another writer needing one and two fixups;
+c. hold every kernel form against its plain PyTorch twin on the card,
+   at the shapes the decode of those files gives it (byte equality),
+   and decode the CPU tests' small geometries on the card;
+e-g. path by path, with every launch count set to 0 just before and
+   read just after: decode each file through
    ``mtscomp_tpu_torch.decompress(..., device='cuda')`` with
-   ``.to_array()`` and ``.tofile()`` (and ``.to_tensor()`` for the
-   first), check each byte for byte against its source, check that
-   every kernel of the path was launched and that no chunk went to the
-   host codec;
+   ``.to_array()`` and ``.tofile()`` (and ``.to_tensor()`` for the two
+   32-s files), check each byte for byte against its source, check
+   that every kernel form of the path was launched and that no chunk
+   went to the host codec;
 h. drop one word, then half the words, of one group's stream and
-   expect the word audit's IOError;
-i. time the staged decode (the batch staged on the card once, CUDA
-   events, median of repeats) and each kernel against its twin.
+   expect the word audit's IOError, on both routes;
+i. time the staged decodes (the batch staged on the card once, CUDA
+   events, median of repeats) and each kernel form against its twin.
 
 The last four lines are a JSON summary of the end-to-end and staged
-timings, a JSON object with one entry per kernel, the card's name and
-power limit, and ``{"ok": true, "device": {"platform": "gpu", ...}}``.
-Without a CUDA GPU it exits with code 2 and prints no result.
+timings (with the kernel forms no path launches, which are held
+against their twins only), a JSON object with one entry per kernel
+form that the paths launch (its launches in total and by path), the
+card's name and power limit, and ``{"ok": true, "device": {"platform":
+"gpu", ...}}``. Without a CUDA GPU it exits with code 2 and prints no
+result.
 """
 
 import json
@@ -45,34 +57,149 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import mtscomp_tpu.codec.ans as ans_codec
 import mtscomp_tpu_torch as mt
 from mtscomp_tpu import compress
 from mtscomp_tpu.models.rans import LANES
 from mtscomp_tpu_torch.ops import _build
 from mtscomp_tpu_torch.ops import device_delta as dd
-from mtscomp_tpu_torch.ops.rans_decode import decode_groups, decode_groups_ref
+from mtscomp_tpu_torch.ops import rans_decode as rd
 from mtscomp_tpu_torch.parallel.pipeline import (
-    DeviceBatchDecoder, _read_payload, check_words_used, fuse8_planes)
+    DeviceBatchDecoder, _decode_fuse8, _read_payload, check_words_used,
+    fuse8_planes, generic_elems)
 
 SR = 30000                    # samples per second = samples per chunk
 BATCH = 8                     # chunks per staged batch (the bench's)
-SECONDS = 32                  # length of the 385-channel int16 recording
+SECONDS = 32                  # length of the two 385-channel main files
 SHORT_SECONDS = 8             # length of the 384-ch and uint16 recordings
+BRANCH_SECONDS = 2            # length of each branch file
 REPS = 8                      # timed repeats per measurement
+TWIN_REPS = 2                 # timed repeats of a twin (slow, launch bound)
 DEVICE = 'cuda'
 
-#: The path's kernels, by launch counter: (name, source, TPU kernel).
+#: Kernel forms: name -> (launch counter of that form, source, TPU
+#: kernel).
 KERNELS = {
-    'rans_decode': ('rans_decode_groups (K1)',
-                    'mtscomp_tpu_torch/csrc/rans_decode.cu',
-                    'mtscomp_tpu/ops/pallas_rans.py:68'),
-    'finalize_u8_tail': ('finalize_u8, tail form (K3)',
-                         'mtscomp_tpu_torch/csrc/finalize_u8.cu',
-                         'mtscomp_tpu/ops/device_delta.py:310'),
-    'finalize_u8': ('finalize_u8 (K2)',
-                    'mtscomp_tpu_torch/csrc/finalize_u8.cu',
-                    'mtscomp_tpu/ops/device_delta.py:238'),
+    'rans_decode_groups, octet (K1)': (
+        'rans_decode_octet', 'mtscomp_tpu_torch/csrc/rans_decode.cu',
+        'mtscomp_tpu/ops/pallas_rans.py:68'),
+    'rans_decode_groups, coarse, one fixup (K1)': (
+        'rans_decode_coarse_1fixup', 'mtscomp_tpu_torch/csrc/rans_decode.cu',
+        'mtscomp_tpu/ops/pallas_rans.py:155'),
+    'rans_decode_groups, coarse, two fixups (K1)': (
+        'rans_decode_coarse_2fixups',
+        'mtscomp_tpu_torch/csrc/rans_decode.cu',
+        'mtscomp_tpu/ops/pallas_rans.py:163'),
+    'finalize_u8, tail form (K3)': (
+        'finalize_u8_tail', 'mtscomp_tpu_torch/csrc/finalize_u8.cu',
+        'mtscomp_tpu/ops/device_delta.py:310'),
+    'finalize_u8 (K2)': (
+        'finalize_u8', 'mtscomp_tpu_torch/csrc/finalize_u8.cu',
+        'mtscomp_tpu/ops/device_delta.py:238'),
+    'scan_transposed int16, head-seeded (K4)': (
+        'scan_transposed_i16_seeded',
+        'mtscomp_tpu_torch/csrc/scan_transposed.cu',
+        'mtscomp_tpu/ops/device_delta.py:140'),
+    'scan_transposed int16, inclusive (K4)': (
+        'scan_transposed_i16_inclusive',
+        'mtscomp_tpu_torch/csrc/scan_transposed.cu',
+        'mtscomp_tpu/ops/device_delta.py:140'),
+    'scan_transposed int32, head-seeded (K4)': (
+        'scan_transposed_i32_seeded',
+        'mtscomp_tpu_torch/csrc/scan_transposed.cu',
+        'mtscomp_tpu/ops/device_delta.py:140'),
+    'scan_transposed int32, inclusive (K4)': (
+        'scan_transposed_i32_inclusive',
+        'mtscomp_tpu_torch/csrc/scan_transposed.cu',
+        'mtscomp_tpu/ops/device_delta.py:140'),
+    'cumsum_time int16 (K5)': (
+        'cumsum_time_i16', 'mtscomp_tpu_torch/csrc/cumsum_time.cu',
+        'mtscomp_tpu/ops/device_delta.py:89'),
+    'cumsum_time int32 (K5)': (
+        'cumsum_time_i32', 'mtscomp_tpu_torch/csrc/cumsum_time.cu',
+        'mtscomp_tpu/ops/device_delta.py:89'),
 }
+
+#: ptxas entry-name fragments -> the kernel form they compile.
+PTXAS_NAMES = (('rans_decode_groups_kernelILi0E', 'K1 octet'),
+               ('rans_decode_groups_kernelILi1E', 'K1 coarse 1'),
+               ('rans_decode_groups_kernelILi2E', 'K1 coarse 2'),
+               ('finalize_u8_kernel', 'K2/K3'),
+               ('scan_transposed_kernelIsLb1E', 'K4 i16 seeded'),
+               ('scan_transposed_kernelIsLb0E', 'K4 i16 incl'),
+               ('scan_transposed_kernelIiLb1E', 'K4 i32 seeded'),
+               ('scan_transposed_kernelIiLb0E', 'K4 i32 incl'),
+               ('cumsum_time_kernelIsE', 'K5 i16'),
+               ('cumsum_time_kernelIiE', 'K5 i32'))
+
+ORDER1 = {'time_diff_order': 1, 'do_spatial_diff': False}
+
+#: Recordings: name -> (signal, seconds, channels, dtype, seed, compress
+#: options, foreign writer's minimum frequency or None, expected
+#: (route, rANS planes, bit6, K1 fixups)). Route 'fuse8' or 'generic'.
+RECORDINGS = {
+    'int16_385ch': ('walk', SECONDS, 385, 'int16', 0, ORDER1, None,
+                    ('fuse8', 1, True, 0)),
+    'int16_384ch': ('walk', SHORT_SECONDS, 384, 'int16', 1, ORDER1, None,
+                    ('fuse8', 1, False, 0)),
+    'uint16_385ch': ('walk', SHORT_SECONDS, 385, 'uint16', 2, ORDER1, None,
+                     ('fuse8', 1, True, 0)),
+    'spiky_int16_385ch': ('spiky', SECONDS, 385, 'int16', 3, ORDER1, None,
+                          ('generic', 2, False, 0)),
+    'order2_fuse8': ('lfp', BRANCH_SECONDS, 385, 'int16', 4,
+                     {'time_diff_order': 2, 'do_spatial_diff': False}, None,
+                     ('fuse8', 1, True, 0)),
+    'order2_generic': ('spiky', BRANCH_SECONDS, 385, 'int16', 5,
+                       {'time_diff_order': 2, 'do_spatial_diff': False},
+                       None, ('generic', 2, False, 0)),
+    'c_order': ('spiky', BRANCH_SECONDS, 385, 'int16', 6,
+                dict(ORDER1, chunk_order='C'), None,
+                ('generic', 2, False, 0)),
+    'spatial': ('spiky', BRANCH_SECONDS, 385, 'int16', 7,
+                {'time_diff_order': 1, 'do_spatial_diff': True}, None,
+                ('generic', 2, False, 0)),
+    'bit6_spatial': ('walk', BRANCH_SECONDS, 385, 'int16', 8,
+                     {'time_diff_order': 1, 'do_spatial_diff': True}, None,
+                     ('generic', 1, True, 0)),
+    'uint8': ('walk', BRANCH_SECONDS, 385, 'uint8', 9, ORDER1, None,
+              ('generic', 1, True, 0)),
+    'int8': ('spiky', BRANCH_SECONDS, 385, 'int8', 10, ORDER1, None,
+             ('generic', 1, True, 0)),
+    'int32': ('spiky', BRANCH_SECONDS, 385, 'int32', 11, ORDER1, None,
+              ('generic', None, False, 0)),
+    'float32_order2': ('walk', BRANCH_SECONDS, 385, 'float32', 12,
+                       {'time_diff_order': 2, 'do_spatial_diff': False},
+                       None, ('generic', None, False, 0)),
+    'raw_low_plane': ('wide', BRANCH_SECONDS, 385, 'int16', 13, ORDER1, None,
+                      ('generic', 1, True, 0)),
+    'foreign_1fixup': ('walk', BRANCH_SECONDS, 385, 'int16', 14,
+                       dict(ORDER1, ans_table_mode='plane'), 16,
+                       ('fuse8', 1, True, 1)),
+    'foreign_2fixups': ('heavy', BRANCH_SECONDS, 385, 'int16', 15,
+                        dict(ORDER1, ans_table_mode='plane'), 9,
+                        ('generic', 2, False, 2)),
+}
+
+#: Paths, each driven with the counts set to 0 just before it: name ->
+#: (recordings, kernel forms that must have launched).
+PATHS = {
+    'fuse8': (('int16_385ch', 'int16_384ch', 'uint16_385ch'),
+              ('rans_decode_octet', 'finalize_u8', 'finalize_u8_tail')),
+    'generic': (('spiky_int16_385ch',),
+                ('rans_decode_octet', 'scan_transposed_i16_seeded')),
+    'branches': (tuple(name for name, r in RECORDINGS.items()
+                       if r[1] == BRANCH_SECONDS),
+                 ('rans_decode_octet', 'rans_decode_coarse_1fixup',
+                  'rans_decode_coarse_2fixups', 'finalize_u8_tail',
+                  'scan_transposed_i16_seeded', 'scan_transposed_i32_seeded',
+                  'cumsum_time_i16', 'cumsum_time_i32')),
+}
+
+#: The forms some path launches. The others, K4's inclusive scans, run
+#: only for chunks without a stored head, which this codec's writer
+#: never makes (it stores one for every 2-D chunk): they are held against
+#: their twins and timed, and reported apart from the path kernels.
+ON_PATH = {form for _names, forms in PATHS.values() for form in forms}
 
 
 def log(msg):
@@ -93,14 +220,12 @@ def gpu_line():
 
 
 def ptxas_resources(ptxas):
-    """``{kernel: 'N bytes spill stores; Used N registers, ...'}`` from
-    ``-Xptxas -v`` output (a spill line and a resource line follow each
-    entry)."""
+    """``{kernel form: 'Used N registers, ...'}`` from ``-Xptxas -v``
+    output (a spill line and a resource line follow each entry)."""
     out, name = {}, None
     for line in ptxas.splitlines():
         if 'Compiling entry function' in line:
-            name = next((k for k in ('rans_decode_groups', 'finalize_u8')
-                         if k + '_kernel' in line), None)
+            name = next((v for k, v in PTXAS_NAMES if k in line), None)
         elif name and ('spill stores' in line or 'registers' in line):
             text = line.split(':', 1)[-1].strip()
             if 'spill stores' in text:
@@ -110,25 +235,106 @@ def ptxas_resources(ptxas):
 
 
 def rounded(x):
-    """Floats of a nested dict to 6 decimals (keeps the summary short)."""
+    """Floats of nested dicts and lists to 6 decimals (keeps the summary
+    short)."""
     if isinstance(x, dict):
         return {k: rounded(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [rounded(v) for v in x]
     return round(x, 6) if isinstance(x, float) else x
 
 
-def make_recording(path, seconds, n_channels, dtype, seed):
-    """Seeded random walk (diff std 6), written one 1-s chunk at a time;
-    int16 wraps like the codec's modular arithmetic."""
+def signal_second(rng, kind, n_channels):
+    """One second of diffs: a random walk's (std 6), with spikes, with
+    wide steps (std 3000: the low byte plane turns RAW) or with heavy
+    tails (2 % of the steps x30)."""
+    if kind == 'wide':
+        return rng.normal(0.0, 3000.0, size=(SR, n_channels))
+    if kind == 'heavy':
+        return heavy_tailed_steps(rng, (SR, n_channels))
+    d = rng.normal(0.0, 6.0, size=(SR, n_channels))
+    if kind == 'spiky':
+        t, c = np.nonzero(rng.random((SR - 3, n_channels)) < 5.0 / SR)
+        for k, v in enumerate((-60.0, -90.0, 150.0)):
+            np.add.at(d, (t + k, c), v)
+    return d
+
+
+def heavy_tailed_steps(rng, shape):
+    """Random-walk steps with heavy tails: normal (std 6), 2 % of them
+    multiplied by 30 (rare and common symbols in the tables)."""
+    steps = rng.normal(0.0, 6.0, size=shape)
+    steps[rng.random(shape) < 0.02] *= 30.0
+    return steps
+
+
+def foreign_quantizer(min_freq):
+    """A stand-in for another writer of the ans format: a drop-in for
+    ``mtscomp_tpu.codec.ans._quantize_rows`` that quantizes at unit
+    granularity (this codec's writer uses an 8-slot grid, which K1 reads
+    through octet tables), as the JAX package's
+    ``test_foreign_min8_tables_container_roundtrip`` does, with every
+    present frequency at least ``min_freq``: 16 keeps each 16-slot
+    bucket to two symbols (one fixup); 9 or less lets a bucket hold three
+    (two fixups). The port's CPU tests import it from here."""
+    def quantize(counts):
+        counts = np.asarray(counts, dtype=np.int64)
+        present = counts > 0
+        ideal = counts * 4096 / counts.sum()
+        freqs = np.floor(ideal).astype(np.int64)
+        freqs[present] = np.maximum(freqs[present], min_freq)
+        rem = int(4096 - freqs.sum())
+        if rem > 0:
+            frac = np.where(present, ideal - np.floor(ideal), -1.0)
+            freqs[np.argsort(-frac, kind='stable')[:rem]] += 1
+        while freqs.sum() > 4096:
+            freqs[int(np.argmax(freqs))] -= 1
+        return freqs
+
+    return lambda sums: np.stack([quantize(r) for r in np.asarray(sums)]
+                                 ).astype(np.uint16)
+
+
+def to_dtype(walk, dtype):
+    """Integer samples in ``dtype``, wrapping like the codec's modular
+    arithmetic; int32 is scaled x1001 (wide values, all four planes in
+    play), float32 by 0.25 (bitcast to int32 by the writer)."""
+    w = walk.astype(np.int64)
+    if dtype == 'float32':
+        return (walk * 0.25).astype(np.float32)
+    if dtype == 'int32':
+        return (w * 1001).astype(np.int32)
+    bits = np.dtype(dtype).itemsize * 8
+    u = (w % (1 << bits)).astype('uint%d' % bits)
+    return u.view(dtype)
+
+
+def lfp_second(rng, s, n_channels, freq, phase):
+    """One second of an LFP-like band: a 5-20 Hz oscillation of
+    amplitude 30 per channel plus white noise (std 1). Its level stays
+    small, so a second-order time diff, whose first coded row is
+    ``x1 - 2*x0``, keeps every chunk's high byte constant (fuse8)."""
+    t = (s * SR + np.arange(SR))[:, None] / SR
+    return (30.0 * np.sin(2 * np.pi * freq * t + phase)
+            + rng.normal(0.0, 1.0, size=(SR, n_channels)))
+
+
+def make_recording(path, kind, seconds, n_channels, dtype, seed):
+    """Seeded signal, written one 1-s chunk at a time."""
     rng = np.random.default_rng(seed)
     arr = np.empty((seconds * SR, n_channels), dtype=dtype)
     level = np.zeros(n_channels)
+    freq = rng.uniform(5.0, 20.0, size=n_channels)
+    phase = rng.uniform(0.0, 2 * np.pi, size=n_channels)
     with open(path, 'wb') as f:
         for s in range(seconds):
-            walk = level + np.cumsum(rng.normal(0.0, 6.0,
-                                                size=(SR, n_channels)),
-                                     axis=0)
+            if kind == 'lfp':
+                walk = lfp_second(rng, s, n_channels, freq, phase)
+            else:
+                walk = level + np.cumsum(
+                    signal_second(rng, kind, n_channels), axis=0)
             level = walk[-1]
-            block = walk.astype(np.int64).astype(np.int16).view(dtype)
+            block = to_dtype(walk, dtype)
             arr[s * SR:(s + 1) * SR] = block
             f.write(block.tobytes())
     return arr
@@ -137,24 +343,32 @@ def make_recording(path, seconds, n_channels, dtype, seed):
 class Recording:
     """A compressed test recording and its source samples."""
 
-    def __init__(self, workdir, name, seconds, n_channels, dtype, seed):
+    def __init__(self, workdir, name):
+        (kind, seconds, n_channels, dtype, seed, opts, min_freq,
+         self.expect) = RECORDINGS[name]
         self.name = name
         raw = workdir / (name + '.bin')
         self.cbin = workdir / (name + '.cbin')
         self.ch = workdir / (name + '.ch')
         self.workdir = workdir
         t0 = time.perf_counter()
-        self.arr = make_recording(raw, seconds, n_channels, dtype, seed)
+        self.arr = make_recording(raw, kind, seconds, n_channels, dtype, seed)
         t1 = time.perf_counter()
-        compress(raw, self.cbin, self.ch, sample_rate=float(SR),
-                 n_channels=n_channels, dtype=dtype, algorithm='ans',
-                 time_diff_order=1, do_spatial_diff=False, quiet=True,
-                 check_after_compress=False, device='none')
+        quantize_rows = ans_codec._quantize_rows
+        if min_freq is not None:
+            ans_codec._quantize_rows = foreign_quantizer(min_freq)
+        try:
+            compress(raw, self.cbin, self.ch, sample_rate=float(SR),
+                     n_channels=n_channels, dtype=dtype, algorithm='ans',
+                     quiet=True, check_after_compress=False, device='none',
+                     **opts)
+        finally:
+            ans_codec._quantize_rows = quantize_rows
         t2 = time.perf_counter()
         raw.unlink()
-        log('d. %s: %d s x %d ch %s, %.1f MB raw -> %.1f MB (x%.3f); '
+        log('d. %s: %d s x %d ch %s (%s), %.1f MB raw -> %.1f MB (x%.3f); '
             'made in %.1f s, host compress %.1f s'
-            % (name, seconds, n_channels, dtype, self.arr.nbytes / 1e6,
+            % (name, seconds, n_channels, dtype, kind, self.arr.nbytes / 1e6,
                self.cbin.stat().st_size / 1e6,
                self.arr.nbytes / self.cbin.stat().st_size, t1 - t0, t2 - t1))
 
@@ -165,7 +379,8 @@ class Recording:
 
     def staged(self, n_chunks=BATCH):
         """(reader, parsed chunks, fn, staged tensors) for the first
-        ``n_chunks`` chunks, staged on the card."""
+        ``n_chunks`` chunks, staged on the card; checks the file has the
+        layout its name promises."""
         r = self.reader()
         parsed = [r.codec.parse(_read_payload(r, i))
                   for i in range(min(n_chunks, r.n_chunks))]
@@ -173,6 +388,20 @@ class Recording:
         require(dec.supported(parsed, SR), '%s: batch not supported'
                 % self.name)
         fn, args = dec.pack(parsed, SR)
+        route, n_rans, bit6, fixups = self.expect
+        got_route = 'fuse8' if fn.func is _decode_fuse8 else 'generic'
+        got_fixups = (fn.keywords['fixups'] if got_route == 'fuse8'
+                      else fn.keywords['lay'].fixups)
+        modes = [tuple(p['modes']) for p in parsed]
+        got_rans = modes[0].count(ans_codec.MODE_RANS)
+        require(got_route == route and got_fixups == fixups
+                and (n_rans is None or got_rans == n_rans)
+                and (parsed[0]['tail_split'] > 1) == bit6
+                and len(set(modes)) == 1,
+                '%s: layout %s (modes %s, tail_split %d, fixups %d), '
+                'expected %s' % (self.name, got_route, modes,
+                                 parsed[0]['tail_split'], got_fixups,
+                                 self.expect))
         return r, parsed, fn, args
 
 
@@ -209,8 +438,9 @@ def compare(kernel, twin, args, kwargs, live=None):
     ref = twin(*args, **kwargs)
     torch.cuda.synchronize()
     if live is None:
-        require(got.shape == ref.shape, 'kernel shape %s, twin shape %s'
-                % (tuple(got.shape), tuple(ref.shape)))
+        require(got.shape == ref.shape and got.dtype == ref.dtype,
+                'kernel %s %s, twin %s %s' % (tuple(got.shape), got.dtype,
+                                              tuple(ref.shape), ref.dtype))
         err = max_abs_err(got, ref)
     else:
         err = max(max_abs_err(got[0], ref[0], live),
@@ -218,6 +448,86 @@ def compare(kernel, twin, args, kwargs, live=None):
     require(err == 0, '%s disagrees with its twin (max abs err %d)'
             % (kernel.__name__, err))
     return err, got
+
+
+def k1_calls(fn, args):
+    """K1 as the staged batch runs it: (name, kernel, twin, args, kwargs)."""
+    kw = fn.keywords
+    S = kw['S'] if 'S' in kw else kw['lay'].S
+    fixups = kw['fixups'] if 'fixups' in kw else kw['lay'].fixups
+    k1_args = tuple(args[:5]) + (S,)
+    if fixups == 0:
+        return ('rans_decode_groups, octet (K1)', rd.decode_groups,
+                rd.decode_groups_ref, k1_args, {})
+    return ('rans_decode_groups, coarse, %s (K1)'
+            % ('one fixup' if fixups == 1 else 'two fixups'),
+            rd.decode_groups_coarse, rd.decode_groups_coarse_ref, k1_args,
+            {'one_fixup': fixups == 1})
+
+
+def check_kernels(recs):
+    """Phase c: every kernel form against its twin at the path's shapes.
+    Returns ``{name: (kernel, twin, args, kwargs, err)}``, at the first
+    batch that ran each form, and the staged batches kept for phases h
+    and i."""
+    calls, staged = {}, {}
+
+    def record(name, kernel, twin, args, kwargs, live=None):
+        err, out = compare(kernel, twin, args, kwargs, live)
+        calls.setdefault(name, (kernel, twin, args, kwargs, err))
+        return out
+
+    for name in ('int16_385ch', 'int16_384ch', 'spiky_int16_385ch', 'int32',
+                 'foreign_1fixup', 'foreign_2fixups'):
+        r, parsed, fn, args = recs[name].staged()
+        k1_name, kernel, twin, k1_args, k1_kw = k1_calls(fn, args)
+        live = (torch.arange(k1_args[-1] * LANES, device=args[4].device)
+                < args[4][:, :, None].long())
+        syms, _used = record(k1_name, kernel, twin, k1_args, k1_kw, live)
+        const_vals, raw_vals, heads = args[5], args[6], args[7]
+        kw = fn.keywords
+        done = [k1_name]
+        if fn.func is _decode_fuse8:
+            bulk, tail_block = fuse8_planes(syms, B=kw['B'], G=kw['G'],
+                                            k=kw['k'], tp=kw['tp'],
+                                            tail=kw['tail'])
+            hi = const_vals[:, 0]
+            if tail_block is None:
+                key, kernel, twin = ('finalize_u8 (K2)',
+                                     dd.cumsum_time_transposed_u8,
+                                     dd.cumsum_time_transposed_u8_ref)
+                f_args = (bulk, heads, hi)
+            else:
+                key, kernel, twin = ('finalize_u8, tail form (K3)',
+                                     dd.cumsum_time_transposed_u8_tail,
+                                     dd.cumsum_time_transposed_u8_tail_ref)
+                cA = bulk.shape[1]
+                f_args = (bulk, tail_block, heads[:, :cA], heads[:, cA:], hi)
+            record(key, kernel, twin, f_args, {'n_samples': SR})
+            done.append(key)
+        else:
+            lay = kw['lay']
+            elems = generic_elems(syms, const_vals, raw_vals, lay)
+            width = 'int32' if lay.itemsize == 4 else 'int16'
+            ct = elems.view(lay.B, lay.C, lay.Tc)
+            out = record('scan_transposed %s, head-seeded (K4)' % width,
+                         dd.cumsum_time_transposed,
+                         dd.cumsum_time_transposed_ref, (ct, heads),
+                         {'n_samples': SR})
+            record('scan_transposed %s, inclusive (K4)' % width,
+                   dd.cumsum_time_transposed, dd.cumsum_time_transposed_ref,
+                   (ct,), {})
+            # K5 at the shape of its order-2 pass: the K4 output.
+            record('cumsum_time %s (K5)' % width, dd.cumsum_time,
+                   dd.cumsum_time_ref, (out,), {})
+            done.append('K4 both modes, K5 (%s)' % width)
+        log('c. %s: B=%d S=%d route %s; %s equal their twins byte for '
+            'byte' % (name, len(parsed), k1_args[-1], fn.func.__name__,
+                      ', '.join(done)))
+        staged[name] = (r, parsed, fn, args)
+    require(set(calls) == set(KERNELS), 'the staged batches ran kernels %s, '
+            'expected %s' % (sorted(calls), sorted(KERNELS)))
+    return calls, staged
 
 
 def decode_through_reader(rec, with_tensor=False):
@@ -252,6 +562,29 @@ def decode_through_reader(rec, with_tensor=False):
         r.close()
 
 
+def drive_paths(recs):
+    """Phases e-g, path by path: counts set to 0 just before each path
+    and read just after. Returns (end-to-end times, counts by path)."""
+    end_to_end, counts_by_path = {}, {}
+    for path, (names, kernels) in PATHS.items():
+        mt.reset_launch_counts()
+        for name in names:
+            end_to_end[name] = decode_through_reader(
+                recs[name], with_tensor=RECORDINGS[name][1] == SECONDS)
+        torch.cuda.synchronize()
+        counts = mt.launch_counts()
+        counts_by_path[path] = counts
+        log('f. launch counts over the %s path: %s'
+            % (path, json.dumps(counts)))
+        for key in kernels:
+            require(counts[key] > 0, 'kernel %s never launched on the %s '
+                    'path' % (key, path))
+        require(counts['host_fallback_chunks'] == 0,
+                '%d chunks fell back to the host codec on the %s path'
+                % (counts['host_fallback_chunks'], path))
+    return end_to_end, counts_by_path
+
+
 def check_small_geometries(workdir):
     """The CPU tests' geometries (a 129-channel ragged tail at 4-channel
     segments, 128 uniform channels, 40 uint16 channels in one row),
@@ -281,6 +614,28 @@ def check_small_geometries(workdir):
             'and through the twins' % (C, T, n, dtype))
 
 
+def check_audit(staged):
+    """Phase h: reads past a group's stream return zeros, the count goes
+    on, and the audit raises -- on the fuse8 and the generic route."""
+    for name in ('int16_385ch', 'spiky_int16_385ch'):
+        r, parsed, _fn, _args = staged[name]
+        for what, cut in (('one dropped word', lambda w: w[:-1]),
+                          ('half the words dropped',
+                           lambda w: w[:w.size // 2])):
+            bad = [dict(p) for p in parsed]
+            j = min(3, len(bad) - 1)
+            groups = [dict(g) for g in bad[j]['groups']]
+            groups[0]['words'] = cut(groups[0]['words'])
+            bad[j]['groups'] = groups
+            try:
+                DeviceBatchDecoder(r, DEVICE).decode_batch(bad, SR)
+            except IOError as e:
+                log('h. %s, %s -> IOError: %s' % (name, what, e))
+            else:
+                raise RuntimeError('%s: %s passed the word audit'
+                                   % (name, what))
+
+
 def stage_breakdown(rec):
     """Host clock of the decode's layers over the whole file, one batch:
     parse, pack + upload, kernels, audit + fetch."""
@@ -300,7 +655,8 @@ def stage_breakdown(rec):
         check_words_used(parsed, used)
         host = out.cpu().numpy()
         t4 = time.perf_counter()
-        require(np.array_equal(host.reshape(rec.arr.shape), rec.arr),
+        require(np.array_equal(host.reshape(rec.arr.shape),
+                               rec.arr.view(host.dtype)),
                 'stage breakdown decode differs from the source')
         return {'chunks': len(parsed), 'parse_s': t1 - t0,
                 'pack_upload_s': t2 - t1, 'device_s': t3 - t2,
@@ -308,6 +664,63 @@ def stage_breakdown(rec):
                 'raw_mb': rec.arr.nbytes / 1e6}
     finally:
         r.close()
+
+
+def time_staged(recs, staged):
+    """Phase i, staged decodes: the B=8 batches kept from phase c, and
+    each 32-s file's 32 chunks in one batch."""
+    stagings = {}
+    for name, (r, parsed, fn, args) in staged.items():
+        out, used = fn(*args)
+        check_words_used(parsed, used)
+        arr = recs[name].arr[:len(parsed) * SR]
+        require(np.array_equal(out.cpu().numpy().reshape(arr.shape),
+                               arr.view(out.cpu().numpy().dtype)),
+                '%s: staged decode differs from the source' % name)
+        if name in ('int16_385ch', 'int16_384ch', 'spiky_int16_385ch'):
+            ms = cuda_ms(lambda: fn(*args), REPS, inner=8)
+            stagings[name] = {'batch_chunks': len(parsed), 'ms': ms,
+                              'gbps': arr.nbytes / 1e6 / ms}
+        r.close()
+    for name in ('int16_385ch', 'spiky_int16_385ch'):
+        r, parsed, fn, args = recs[name].staged(SECONDS)
+        try:
+            ms = cuda_ms(lambda: fn(*args), REPS, inner=2)
+            stagings[name + '_all'] = {
+                'batch_chunks': len(parsed), 'ms': ms,
+                'gbps': len(parsed) * SR * 385 * 2 / 1e6 / ms}
+        finally:
+            r.close()
+    for name, st in stagings.items():
+        log('i. staged decode %s: %.4f ms per %d-chunk batch, %.3f GB/s'
+            ' of decoded output' % (name, st['ms'], st['batch_chunks'],
+                                    st['gbps']))
+    return stagings
+
+
+def time_kernels(calls, counts_by_path):
+    """Phase i, kernel forms against their twins. Returns the entries of
+    the forms the paths launch and, apart, of those no path launches;
+    ``launches`` is the form's counter summed over the paths' runs,
+    ``launches_by_path`` the counter of each path's run."""
+    on_path, off_path = [], []
+    for name, (key, source, replaces) in KERNELS.items():
+        kernel, twin, args, kwargs, err = calls[name]
+        ms = cuda_ms(lambda: kernel(*args, **kwargs), REPS)
+        plain_ms = cuda_ms(lambda: twin(*args, **kwargs), TWIN_REPS)
+        by_path = {path: c[key] for path, c in counts_by_path.items()}
+        entry = {'name': name, 'route': 'cuda', 'source': source,
+                 'replaces': replaces, 'launches': sum(by_path.values()),
+                 'launches_by_path': by_path, 'max_abs_err': err, 'ms': ms,
+                 'plain_ms': plain_ms}
+        if key in ON_PATH:
+            require(entry['launches'] > 0, '%s never launched' % name)
+            on_path.append(entry)
+        else:
+            off_path.append(entry)
+        log('i. %s: kernel %.4f ms, twin %.4f ms (on the card); launches '
+            'by path %s' % (name, ms, plain_ms, json.dumps(by_path)))
+    return on_path, off_path
 
 
 def main():
@@ -332,125 +745,18 @@ def main():
 
     workdir = Path(tempfile.mkdtemp(prefix='mtscomp_smoke_'))
     try:
-        recs = {
-            'int16_385ch': Recording(workdir, 'int16_385ch', SECONDS,
-                                     385, 'int16', 0),
-            'int16_384ch': Recording(workdir, 'int16_384ch',
-                                     SHORT_SECONDS, 384, 'int16', 1),
-            'uint16_385ch': Recording(workdir, 'uint16_385ch',
-                                      SHORT_SECONDS, 385, 'uint16', 2),
-        }
-
-        # c. Each kernel against its twin at the main path's shapes.
-        staged, calls = {}, {}
-        for name in ('int16_385ch', 'int16_384ch'):
-            r, parsed, fn, args = recs[name].staged()
-            kw = fn.keywords
-            k1_args = tuple(args[:5]) + (kw['S'],)
-            live = (torch.arange(kw['S'] * LANES, device=args[4].device)
-                    < args[4][:, :, None].long())
-            err, (syms, _used) = compare(decode_groups, decode_groups_ref,
-                                         k1_args, {}, live)
-            bulk, tail_block = fuse8_planes(syms, B=kw['B'], G=kw['G'],
-                                            k=kw['k'], tp=kw['tp'],
-                                            tail=kw['tail'])
-            heads, hi = args[6], args[5]
-            if tail_block is None:
-                key, kernel, twin = ('finalize_u8',
-                                     dd.cumsum_time_transposed_u8,
-                                     dd.cumsum_time_transposed_u8_ref)
-                f_args = (bulk, heads, hi)
-            else:
-                key, kernel, twin = ('finalize_u8_tail',
-                                     dd.cumsum_time_transposed_u8_tail,
-                                     dd.cumsum_time_transposed_u8_tail_ref)
-                cA = bulk.shape[1]
-                f_args = (bulk, tail_block, heads[:, :cA], heads[:, cA:], hi)
-            f_err, _out = compare(kernel, twin, f_args, {'n_samples': SR})
-            calls.setdefault('rans_decode', (decode_groups, decode_groups_ref,
-                                             k1_args, {}, err))
-            calls[key] = (kernel, twin, f_args, {'n_samples': SR}, f_err)
-            log('c. %s: B=%d G=%d S=%d k=%d tp=%d tail=%s; K1 and %s equal '
-                'their twins byte for byte' % (name, kw['B'], kw['G'], kw['S'],
-                                               kw['k'], kw['tp'], kw['tail'],
-                                               key))
-            staged[name] = (r, parsed, fn, args)
-        require(set(calls) == set(KERNELS), 'the staged batches ran kernels '
-                '%s, expected %s' % (sorted(calls), sorted(KERNELS)))
+        recs = {name: Recording(workdir, name) for name in RECORDINGS}
+        calls, staged = check_kernels(recs)
+        for name in set(RECORDINGS) - set(staged):
+            recs[name].staged()[0].close()        # checks its layout
         check_small_geometries(workdir)
-
-        # e-g. The main path, through the user entry points, counted.
-        mt.reset_launch_counts()
-        end_to_end = {name: decode_through_reader(
-            rec, with_tensor=name == 'int16_385ch')
-            for name, rec in recs.items()}
-        torch.cuda.synchronize()
-        counts = mt.launch_counts()
-        log('f. launch counts over the main path: %s' % json.dumps(counts))
-        for key in KERNELS:
-            require(counts[key] > 0, 'kernel %s never launched on the main '
-                    'path' % key)
-        require(counts['host_fallback_chunks'] == 0,
-                '%d chunks fell back to the host codec'
-                % counts['host_fallback_chunks'])
-
-        # h. The word audit on the card: reads past a group's stream
-        # return zeros, the count goes on, and the audit raises.
-        r, parsed, _fn, _args = staged['int16_385ch']
-        for what, cut in (('one dropped word', lambda w: w[:-1]),
-                          ('half the words dropped',
-                           lambda w: w[:w.size // 2])):
-            bad = [dict(p) for p in parsed]
-            groups = [dict(g) for g in bad[3]['groups']]
-            groups[0]['words'] = cut(groups[0]['words'])
-            bad[3]['groups'] = groups
-            try:
-                DeviceBatchDecoder(r, DEVICE).decode_batch(bad, SR)
-            except IOError as e:
-                log('h. %s -> IOError: %s' % (what, e))
-            else:
-                raise RuntimeError('%s passed the word audit' % what)
-
-        # i. Timings (CUDA events; the card's name and limit above).
-        stagings = {}
-        for name, (r, parsed, fn, args) in staged.items():
-            out, used = fn(*args)
-            check_words_used(parsed, used)
-            arr = recs[name].arr[:len(parsed) * SR]
-            require(np.array_equal(out.cpu().numpy().reshape(arr.shape),
-                                   arr.view(np.int16)),
-                    '%s: staged decode differs from the source' % name)
-            ms = cuda_ms(lambda: fn(*args), REPS, inner=8)
-            stagings[name] = {'batch_chunks': len(parsed), 'ms': ms,
-                              'gbps': arr.nbytes / 1e6 / ms}
-            r.close()
-        r, parsed, fn, args = recs['int16_385ch'].staged(SECONDS)
-        try:
-            ms = cuda_ms(lambda: fn(*args), REPS, inner=2)
-            stagings['int16_385ch_all'] = {
-                'batch_chunks': len(parsed), 'ms': ms,
-                'gbps': len(parsed) * SR * 385 * 2 / 1e6 / ms}
-        finally:
-            r.close()
-        del staged, fn, args
-        for name, st in stagings.items():
-            log('i. staged decode %s: %.4f ms per %d-chunk batch, %.3f GB/s'
-                ' of decoded output' % (name, st['ms'], st['batch_chunks'],
-                                        st['gbps']))
-        layers = stage_breakdown(recs['int16_385ch'])
-
-        kernels = []
-        for key, (name, source, replaces) in KERNELS.items():
-            kernel, twin, args, kwargs, err = calls[key]
-            ms = cuda_ms(lambda: kernel(*args, **kwargs), REPS)
-            plain_ms = cuda_ms(lambda: twin(*args, **kwargs),
-                               max(2, REPS // 4))
-            kernels.append({'name': name, 'route': 'cuda', 'source': source,
-                            'replaces': replaces, 'launches': counts[key],
-                            'max_abs_err': err, 'ms': ms,
-                            'plain_ms': plain_ms})
-            log('i. %s: kernel %.4f ms, twin %.4f ms (on the card)'
-                % (name, ms, plain_ms))
+        end_to_end, counts_by_path = drive_paths(recs)
+        check_audit(staged)
+        stagings = time_staged(recs, staged)
+        del staged
+        layers = {name: stage_breakdown(recs[name])
+                  for name in ('int16_385ch', 'spiky_int16_385ch')}
+        kernels, off_path = time_kernels(calls, counts_by_path)
         del calls
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -460,7 +766,8 @@ def main():
     # only the end of the output still holds every number.
     log(json.dumps(rounded({'build_s': build_s, 'ptxas': resources,
                             'end_to_end': end_to_end, 'staged': stagings,
-                            'layers_385ch_s': layers})))
+                            'layers_s': layers,
+                            'held_against_twin_only': off_path})))
     log(json.dumps({'kernels': kernels}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

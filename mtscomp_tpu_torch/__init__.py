@@ -21,17 +21,15 @@ __all__ = ('Reader', 'decompress', 'resolve_device', 'DeviceBatchDecoder',
 
 
 def launch_counts():
-    """Kernel launches so far in this process, by kernel, plus the chunks
-    the pipeline sent to the host codec."""
-    return {'rans_decode': rans_decode.launches,
-            'finalize_u8': device_delta.launches,
-            'finalize_u8_tail': device_delta.tail_launches,
-            'host_fallback_chunks': pipeline.host_fallback_chunks}
+    """Kernel launches so far in this process, by kernel form (K1 by
+    lookup, K4 by element type and mode, K5 by element type), plus the
+    chunks the pipeline sent to the host codec."""
+    return dict(rans_decode.launches, **device_delta.launches,
+                host_fallback_chunks=pipeline.host_fallback_chunks)
 
 
 def reset_launch_counts():
     """Set every count of :func:`launch_counts` to 0."""
-    rans_decode.launches = 0
-    device_delta.launches = 0
-    device_delta.tail_launches = 0
+    for counts in (rans_decode.launches, device_delta.launches):
+        counts.update(dict.fromkeys(counts, 0))
     pipeline.host_fallback_chunks = 0

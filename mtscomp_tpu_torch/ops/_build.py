@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, loaded with ``ctypes``.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into ONE shared
+library with a plain C interface, loaded with ``ctypes``.
 The build happens at the first CUDA call, never at import: the CPU test
 suite imports every module on machines without ``nvcc``. The library
 file is keyed on a hash of the sources and flags, so an edit rebuilds
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lock = threading.Lock()
 _lib = None
@@ -52,40 +53,69 @@ def library_path():
 
 def build():
     """Compile the kernels unless a library for the current sources
-    exists; returns ``(path, compiler output)``. The output (ptxas
-    register, spill and shared-memory counts) is kept beside the library
-    as ``.log``, so a cached build returns it too.
+    exists; returns ``(path, compiler output)``. One ``nvcc -c`` per
+    source runs in parallel, then one link. The output (ptxas register,
+    spill and shared-memory counts) is kept beside the library as
+    ``.log``, so a cached build returns it too.
     """
     path = library_path()
     log = path.with_suffix('.log')
     if path.exists() and log.exists():
         return path, log.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix('.%d.tmp.so' % os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *[str(s) for s in sorted(CSRC.glob('*.cu'))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s"
-                           % (proc.returncode, ' '.join(cmd),
-                              proc.stderr[-8000:]))
-    # Atomic publish, log first: concurrent first builds race benignly.
-    tmp_log = log.with_suffix('.%d.tmp.log' % os.getpid())
-    tmp_log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp_log, log)
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    tag = '%s.%d' % (path.stem, os.getpid())
+    srcs = sorted(CSRC.glob('*.cu'))
+    objs = [BUILD_DIR / ('%s.%s.o' % (tag, s.stem)) for s in srcs]
+    tmp = BUILD_DIR / ('%s.tmp.so' % tag)
+    procs = []
+    try:
+        for s, o in zip(srcs, objs):
+            cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(o), str(s)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outputs = []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            outputs.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed (%d):\n%s\n%s"
+                                   % (proc.returncode, ' '.join(cmd),
+                                      out[-8000:]))
+        cmd = [nvcc, '-shared', '-o', str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed (%d):\n%s\n%s"
+                               % (proc.returncode, ' '.join(cmd),
+                                  proc.stderr[-8000:]))
+        # Atomic publish, log first: concurrent first builds race benignly.
+        tmp_log = BUILD_DIR / ('%s.tmp.log' % tag)
+        tmp_log.write_text(''.join(outputs))
+        os.replace(tmp_log, log)
+        os.replace(tmp, path)
+    finally:
+        for _cmd, proc in procs:          # after a failure, stop the rest
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return path, log.read_text()
 
 
 def _declare(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mts_rans_decode_groups.argtypes = [
-        i, p, p, p, p, p, p, p, p, i, i, i]
-    lib.mts_rans_decode_groups.restype = i
+        i, p, p, p, p, p, p, p, p, i, i, i, i]
     lib.mts_finalize_u8.argtypes = [
         i, p, ll, i, i, p, ll, i, p, p, p, i, i, i, i, p]
-    lib.mts_finalize_u8.restype = i
+    lib.mts_scan_transposed.argtypes = [
+        i, p, ll, ll, p, p, i, i, i, i, i, p]
+    lib.mts_cumsum_time.argtypes = [i, p, p, i, i, i, i, p]
+    for fn in (lib.mts_rans_decode_groups, lib.mts_finalize_u8,
+               lib.mts_scan_transposed, lib.mts_cumsum_time):
+        fn.restype = i
     lib.mts_cuda_error_string.argtypes = [i]
     lib.mts_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,28 +1,52 @@
-"""K2 + K3: the fused finalize of the fuse8 decode, the port's counterpart
-of ``mtscomp_tpu/ops/device_delta.py`` (``cumsum_time_transposed_u8``
-and ``cumsum_time_transposed_u8_tail``).
+"""The decode's time and channel integration, the port's counterpart of
+``mtscomp_tpu/ops/device_delta.py``.
 
-Both entry points keep the JAX names and reach ONE CUDA kernel
-(``csrc/finalize_u8.cu``): on the card the ragged tail is just a second
-input pointer, so the TPU's two kernels become one. For CPU tensors
-each runs its plain PyTorch twin (``*_ref``); nothing else selects
-between them.
+Kernels (each entry point launches its CUDA kernel for CUDA tensors and
+runs its plain PyTorch twin, ``*_ref``, for CPU tensors; nothing else
+selects between them):
 
-Unlike the TPU kernels, the output is written at its final shape
-``(B, n_samples, C)``: no 128-multiple padding of time or channels to
-trim afterwards.
+- K2 + K3, the fused finalize of the fuse8 decode:
+  ``cumsum_time_transposed_u8`` and ``cumsum_time_transposed_u8_tail``
+  keep the JAX names and reach ONE CUDA kernel (``csrc/finalize_u8.cu``):
+  on the card the ragged tail is just a second input pointer, so the
+  TPU's two kernels become one.
+- K4, ``cumsum_time_transposed`` (``csrc/scan_transposed.cu``): the
+  generic route's transpose + time scan of int16/int32 diffs.
+- K5, ``cumsum_time`` (``csrc/cumsum_time.cu``): the carried time cumsum
+  of time-major int16/int32 samples.
+
+Unlike the TPU kernels, every output is written at its final shape: no
+128-multiple padding of time or channels to trim afterwards.
+
+Plain ops (XLA ops in the JAX package, plain torch here):
+``zigzag_decode``, ``cumsum_space`` and ``cumsum_time_ref`` (the
+counterparts of ``zigzag_decode_jnp``, ``cumsum_space_jnp`` and
+``cumsum_time_jnp``). torch has almost no uint16/uint32 arithmetic, so
+they take the codes as same-width integer bits (uint8, int16, int32)
+and compute in int32/int64.
 """
 
 import torch
 
 from . import _build
 
-#: Kernel launches in this process, by entry point (CUDA calls only;
-#: the twins never count): ``launches`` through
-#: :func:`cumsum_time_transposed_u8`, ``tail_launches`` through
-#: :func:`cumsum_time_transposed_u8_tail`.
-launches = 0
-tail_launches = 0
+#: Kernel launches in this process, by kernel form (CUDA calls only; the
+#: twins never count): the finalize through
+#: :func:`cumsum_time_transposed_u8` and its tail form through
+#: :func:`cumsum_time_transposed_u8_tail`; K4 through
+#: :func:`cumsum_time_transposed` by element type and mode (seeded by a
+#: head, or inclusive); K5 through :func:`cumsum_time` by element type.
+launches = {'finalize_u8': 0, 'finalize_u8_tail': 0,
+            'scan_transposed_i16_seeded': 0,
+            'scan_transposed_i16_inclusive': 0,
+            'scan_transposed_i32_seeded': 0,
+            'scan_transposed_i32_inclusive': 0,
+            'cumsum_time_i16': 0, 'cumsum_time_i32': 0}
+
+#: The scan kernels' element types (1-byte data is widened by callers),
+#: and their names in the launch counts.
+SCAN_DTYPES = (torch.int16, torch.int32)
+_WIDTH = {torch.int16: 'i16', torch.int32: 'i32'}
 
 
 def cumsum_time_transposed_u8(planes, head, hi, n_samples=None):
@@ -108,7 +132,6 @@ def _finalize(planes, tail, head, hi, n_samples):
 
 
 def _launch(planes, tail, head, hi, T):
-    global launches, tail_launches
     if planes.device.type != 'cuda':
         raise ValueError("the finalize runs on CUDA or CPU tensors, not %s"
                          % planes.device)
@@ -138,10 +161,7 @@ def _launch(planes, tail, head, hi, T):
         head.data_ptr(), hi.data_ptr(), out.data_ptr(), B, C, T, t_in,
         _build.stream_handle(planes))
     _build.check(lib, rc, 'finalize_u8')
-    if tail is None:
-        launches += 1
-    else:
-        tail_launches += 1
+    launches['finalize_u8' if tail is None else 'finalize_u8_tail'] += 1
     return out
 
 
@@ -158,3 +178,138 @@ def _finalize_ref(planes, tail, head, hi, T):
     v = (excl + head.to(torch.int64)[:, :, None]) & 0xFFFF
     v = v - ((v >> 15) << 16)                     # to the int16 range
     return v.to(torch.int16).transpose(1, 2).contiguous()
+
+
+# --- plain ops ----------------------------------------------------------
+
+def wrap_to(v, dtype):
+    """int64 ``v`` modulo 2^bits as ``dtype`` (uint8, int8, int16, int32):
+    the in-dtype wrap of the JAX package's integer ops."""
+    bits = torch.iinfo(dtype).bits
+    v = v & ((1 << bits) - 1)
+    if dtype.is_signed:
+        v = v - ((v >> (bits - 1)) << bits)
+    return v.to(dtype)
+
+
+def zigzag_decode(z):
+    """Inverse zigzag of codes held as uint8, int16 or int32 bits ->
+    the decoded integers' bits in the same dtype, ``(z >>> 1) ^ -(z &
+    1)`` computed in that dtype (no widening pass)."""
+    if z.dtype == torch.uint8:
+        return (z >> 1) ^ ((z & 1) * 255)
+    if z.dtype not in SCAN_DTYPES:
+        raise ValueError("zigzag_decode takes uint8, int16 or int32 codes, "
+                         "not %s" % z.dtype)
+    # Logical right shift: torch's >> on signed ints is arithmetic.
+    return ((z >> 1) & torch.iinfo(z.dtype).max) ^ -(z & 1)
+
+
+def cumsum_space(d):
+    """In-dtype (wrapping) cumsum over channels of (B, T, C) integers."""
+    return wrap_to(torch.cumsum(d.to(torch.int64), dim=2), d.dtype)
+
+
+def cumsum_time_ref(d):
+    """Plain PyTorch twin of :func:`cumsum_time` (the JAX package's
+    ``cumsum_time_jnp``): in-dtype cumsum over time of (B, T, C)."""
+    return wrap_to(torch.cumsum(d.to(torch.int64), dim=1), d.dtype)
+
+
+# --- K5: carried time cumsum --------------------------------------------
+
+def cumsum_time(d):
+    """(B, T, C) int16/int32 -> its wrapping cumsum over time (K5).
+
+    The CUDA kernel writes a new contiguous tensor; ``d`` is read as
+    contiguous (a strided ``d`` is copied first).
+    """
+    if d.dim() != 3 or d.dtype not in SCAN_DTYPES:
+        raise ValueError("cumsum_time takes (B, T, C) int16 or int32, got "
+                         "%s %s" % (d.dtype, tuple(d.shape)))
+    if d.device.type == 'cpu':
+        return cumsum_time_ref(d)
+    if d.device.type != 'cuda':
+        raise ValueError("cumsum_time runs on CUDA or CPU tensors, not %s"
+                         % d.device)
+    d = d.contiguous()
+    B, T, C = d.shape
+    out = torch.empty_like(d)
+    lib = _build.library()
+    rc = lib.mts_cumsum_time(d.device.index, d.data_ptr(), out.data_ptr(),
+                             B, T, C, d.element_size(),
+                             _build.stream_handle(d))
+    _build.check(lib, rc, 'cumsum_time')
+    launches['cumsum_time_' + _WIDTH[d.dtype]] += 1
+    return out
+
+
+# --- K4: transpose + time scan ------------------------------------------
+
+def cumsum_time_transposed(elems, head=None, n_samples=None):
+    """(B, C, T') int16/int32 channel-major -> (B, T, C) integrated (K4).
+
+    Without ``head`` the scan is inclusive: ``out[:, t] = sum(elems[:, :,
+    :t+1])``, T = ``n_samples`` <= T' (default T'). With ``head`` (B, C)
+    of the same dtype it is exclusive and seeded by the head: ``out[:, t]
+    = head + sum(elems[:, :, :t])``, T <= T' + 1 (default T'). Both wrap
+    modulo the element width. ``elems`` rows must be time-contiguous;
+    batch and channel strides are free.
+    """
+    T = _scan_t_check(elems, head, n_samples)
+    if elems.device.type == 'cpu':
+        return _scan_t_ref(elems, head, T)
+    if elems.device.type != 'cuda':
+        raise ValueError("cumsum_time_transposed runs on CUDA or CPU "
+                         "tensors, not %s" % elems.device)
+    if elems.stride(2) != 1:
+        raise ValueError("elems rows must be time-contiguous")
+    B, C, t_in = elems.shape
+    if head is not None:
+        head = head.contiguous()
+    out = torch.empty((B, T, C), dtype=elems.dtype, device=elems.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    rc = lib.mts_scan_transposed(
+        elems.device.index, elems.data_ptr(), elems.stride(0),
+        elems.stride(1), None if head is None else head.data_ptr(),
+        out.data_ptr(), B, C, T, t_in, elems.element_size(),
+        _build.stream_handle(elems))
+    _build.check(lib, rc, 'scan_transposed')
+    launches['scan_transposed_%s_%s' % (
+        _WIDTH[elems.dtype], 'inclusive' if head is None else 'seeded')] += 1
+    return out
+
+
+def cumsum_time_transposed_ref(elems, head=None, n_samples=None):
+    """Plain PyTorch twin of :func:`cumsum_time_transposed`."""
+    return _scan_t_ref(elems, head, _scan_t_check(elems, head, n_samples))
+
+
+def _scan_t_check(elems, head, n_samples):
+    if elems.dim() != 3 or elems.dtype not in SCAN_DTYPES:
+        raise ValueError("cumsum_time_transposed takes (B, C, T) int16 or "
+                         "int32, got %s %s" % (elems.dtype,
+                                               tuple(elems.shape)))
+    B, C, t_in = elems.shape
+    if head is not None:
+        if head.dtype != elems.dtype or tuple(head.shape) != (B, C):
+            raise ValueError("head must be (B, C) %s" % elems.dtype)
+        if head.device != elems.device:
+            raise ValueError("all inputs must be on one device")
+    T = t_in if n_samples is None else int(n_samples)
+    if not 0 <= T <= t_in + (head is not None):
+        raise ValueError("n_samples %d out of range for %d elements per "
+                         "channel" % (T, t_in))
+    return T
+
+
+def _scan_t_ref(elems, head, T):
+    B, C, _ = elems.shape
+    s = torch.cumsum(elems.to(torch.int64), dim=2)
+    if head is not None:
+        s = torch.cat([torch.zeros((B, C, 1), dtype=torch.int64,
+                                   device=elems.device), s], dim=2)
+        s = s + head.to(torch.int64)[:, :, None]
+    return wrap_to(s[:, :, :T], elems.dtype).transpose(1, 2).contiguous()

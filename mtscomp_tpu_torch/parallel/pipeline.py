@@ -2,46 +2,66 @@
 ported to PyTorch.
 
 A batch of B chunk containers is parsed on the host, staged as tensors
-(:meth:`DeviceBatchDecoder.pack`), and decoded by eager calls into the
-port's kernels: K1 (grouped rANS decode, ``ops/rans_decode.py``) writes
-the row-linear byte plane, whose rows ARE channels of ``tp`` symbols,
-and the fused finalize (``ops/device_delta.py``) turns it into the
-(B, T, C) samples. That is the JAX package's "fuse8" route, the one
-its headline bench measures; it covers int16/uint16 F-order chunks with
-a first-order time diff, no spatial diff, channel-aligned segments and
-8-aligned (octet) tables.
+(:meth:`DeviceBatchDecoder.pack`, the same arrays as the JAX package's
+``pack``), and decoded by eager calls into the port's kernels. K1
+(grouped rANS decode, ``ops/rans_decode.py``) writes each group's
+row-linear byte rows; then one of two routes, the JAX package's
+``_build_decode_fn`` branches:
 
-Batches the JAX package also leaves to the host (``supported()`` False)
-decode on the host codec, and the module counts those chunks
-(``host_fallback_chunks``). Batches the JAX package decodes on its
-device but this port does not cover yet raise ``NotImplementedError``
-naming the ROADMAP item: they never fall silently to the host.
+- **fuse8**: int16/uint16 F-order chunks with a first-order time diff
+  (or second: K5 follows), no spatial diff, channel-aligned segments and
+  one rANS-coded low byte plane under a constant high byte. K1's rows ARE
+  channels, and the fused finalize (K2/K3, ``ops/device_delta.py``) turns
+  them into the (B, T, C) samples.
+- **generic**: everything else that ``supported()`` accepts (1-, 2- and
+  4-byte integers and bitcast floats, rANS/CONST/RAW planes in any mix,
+  C or F order, spatial diff, first- or second-order time diff, flags
+  bit6 without the tail packing). The byte planes are reassembled and
+  combined and the inverse zigzag applied in plain torch; then K4 (fused
+  transpose + time scan) for F-order time-diff chunks without a spatial
+  diff, and otherwise the layout, spatial cumsum and K5 passes.
+
+K1 uses octet tables when every table of the batch is 8-aligned (what
+this codec's writer emits) and its coarse/fixup form otherwise. Unlike
+the JAX package, the port always runs K1: the TPU's switch to a scan
+decoder for word streams beyond its VMEM window has no cause on the
+H100.
+
+Chunks the JAX package also leaves to the host (``supported()`` False
+even alone: 8-byte dtypes, a non-native byte order, a head that is not
+one full row) decode on the host codec, and the module counts them
+(``host_fallback_chunks``).
 """
 
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
-from mtscomp_tpu.codec.ans import MODE_CONST, MODE_RANS, MODE_RAW, peek_desc
+from mtscomp_tpu.codec.ans import (MODE_CONST, MODE_RANS, MODE_RAW, peek_desc,
+                                   segment_counts)
 from mtscomp_tpu.codec.ans import seg_freqs as ans_seg_freqs
 from mtscomp_tpu.io_host import pread_exact
 from mtscomp_tpu.models.rans import GROUP_ROWS, LANES, RANS_L
 from mtscomp_tpu.utils.misc import logger
 
 from ..device import resolve_device
-from ..ops.device_delta import (cumsum_time_transposed_u8,
-                                cumsum_time_transposed_u8_tail)
-from ..ops.rans_decode import decode_groups
+from ..ops.device_delta import (cumsum_space, cumsum_time,
+                                cumsum_time_transposed,
+                                cumsum_time_transposed_u8,
+                                cumsum_time_transposed_u8_tail,
+                                zigzag_decode)
+from ..ops.rans_decode import decode_groups, decode_groups_coarse
 from ..ops.tables import WINDOW_ROWS, pack_device_tables
 
 #: Chunks decoded on the host codec because ``supported()`` declined
 #: their batch (the codec's documented semantics, as in the JAX package).
 host_fallback_chunks = 0
 
-_NOT_YET = ("not covered by the GPU port yet (ROADMAP.md Queue 1, "
-            "'generic decode branches': kernels K4/K5 and K1's "
-            "coarse/fixup tables)")
+#: Tensor dtype holding a coding dtype's bits, by item size.
+_BITS = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.int16),
+         4: (torch.int32, np.int32)}
 
 
 def _fuse8_geom(modes, dtype, zigzag, order, do_time_diff, do_spatial_diff,
@@ -67,8 +87,17 @@ def _fuse8_geom(modes, dtype, zigzag, order, do_time_diff, do_spatial_diff,
     return fuse8, k
 
 
-def _decode_fuse8(states, words, octet_pk, dense_pk, counts, hi, heads, *,
-                  B, T, G, S, k, tp, tail):
+def _k1(states, words, lookup, dense_pk, counts, S, fixups):
+    """K1 with the batch's table form: octet (0) or 1/2 fixups."""
+    if fixups:
+        return decode_groups_coarse(states, words, lookup, dense_pk, counts,
+                                    S, one_fixup=fixups == 1)
+    return decode_groups(states, words, lookup, dense_pk, counts, S)
+
+
+def _decode_fuse8(states, words, lookup, dense_pk, counts, const_vals,
+                  _raw_vals, heads, *, B, T, G, S, k, tp, tail, fixups,
+                  diff_order):
     """Eager fuse8 decode -> ``((B, T, C) int16, (B*G,) int32 words used)``.
 
     ``tail`` is the packer's ragged-tail decision: None, or ``(rem, ctB,
@@ -76,8 +105,9 @@ def _decode_fuse8(states, words, octet_pk, dense_pk, counts, hi, heads, *,
     leftover channels as sub-rows of ``rows_n`` symbols, packed after
     all full groups.
     """
-    syms, used = decode_groups(states, words, octet_pk, dense_pk, counts, S)
+    syms, used = _k1(states, words, lookup, dense_pk, counts, S, fixups)
     bulk, tail_block = fuse8_planes(syms, B=B, G=G, k=k, tp=tp, tail=tail)
+    hi = const_vals[:, 0]
     if tail is None:
         out = cumsum_time_transposed_u8(bulk, heads, hi, n_samples=T)
     else:
@@ -88,6 +118,10 @@ def _decode_fuse8(states, words, octet_pk, dense_pk, counts, hi, heads, *,
         NF = B * (G - 1)
         used = torch.cat([used[:NF].view(B, G - 1), used[NF:].view(B, 1)],
                          dim=1).reshape(-1)
+    # The finalize inverted the second diff (d2 -> d1); one more carried
+    # scan restores the samples.
+    for _ in range(diff_order - 1):
+        out = cumsum_time(out)
     return out, used
 
 
@@ -108,12 +142,156 @@ def fuse8_planes(syms, *, B, G, k, tp, tail):
     return bulk, tail_block
 
 
-def _to_tensors(states, words, octet_pk, dense_pk, counts, hi, heads,
-                device):
-    """Staged numpy arrays -> the decode fn's tensors on ``device``.
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """One batch's geometry on the generic route (what the JAX package
+    keys its compiled ``_build_decode_fn`` on)."""
 
-    uint32 states and uint16 words/heads travel as int32/int16 tensors
-    holding the same bits (torch has almost no unsigned arithmetic).
+    B: int                      # chunks
+    T: int                      # samples per chunk
+    C: int                      # channels
+    itemsize: int               # bytes per element (1, 2 or 4)
+    modes: tuple                # per byte plane: MODE_RAW/RANS/CONST
+    n_seg: int                  # segments per rANS plane
+    seg: int                    # symbols per segment
+    G: int                      # groups per chunk
+    S: int                      # K1 steps (row width / 128)
+    order: str                  # 'F' or 'C'
+    do_time_diff: bool
+    diff_order: int             # 1 or 2
+    do_spatial_diff: bool
+    zigzag: bool
+    has_head: bool              # the first sample is stored verbatim
+    aligned: bool               # channel-aligned segments (flags bit2)
+    tail_split: int             # flags bit6 sub-rows (1 = off)
+    fixups: int                 # K1 lookup: 0 octet, 1 or 2 coarse
+
+    def planes(self, mode):
+        return [p for p, m in enumerate(self.modes) if m == mode]
+
+    @property
+    def Tc(self):
+        """Coded samples per channel (the head row is stored apart)."""
+        return self.T - 1 if self.has_head else self.T
+
+    @property
+    def tp(self):
+        """Per-channel stream length, padded to 128 (aligned layouts)."""
+        return -(-self.Tc // LANES) * LANES if self.aligned else 0
+
+    @property
+    def n_stream(self):
+        return self.C * self.tp if self.aligned else self.Tc * self.C
+
+
+def _decode_generic(states, words, lookup, dense_pk, counts, const_vals,
+                    raw_vals, heads, *, lay):
+    """Eager generic decode -> ``((B, T, C) bits, words used)``; the
+    samples come as the coding dtype's bits (``_BITS``)."""
+    if lay.planes(MODE_RANS):
+        syms, used = _k1(states, words, lookup, dense_pk, counts, lay.S,
+                         lay.fixups)
+    else:
+        syms = None
+        used = torch.zeros((lay.B,), dtype=torch.int32, device=heads.device)
+    elems = generic_elems(syms, const_vals, raw_vals, lay)
+    return generic_samples(elems, heads, lay), used
+
+
+def generic_elems(syms, const_vals, raw_vals, lay):
+    """K1's rows (None without a rANS plane) and the CONST/RAW planes ->
+    the (B, Tc*C) coded elements in F or C order (plane combine, inverse
+    zigzag), as the coding dtype's bits."""
+    B, C, Tc = lay.B, lay.C, lay.Tc
+    n_elems = Tc * C
+    acc = torch.empty((B, n_elems, lay.itemsize), dtype=torch.uint8,
+                      device=const_vals.device)
+    rans = lay.planes(MODE_RANS)
+    if rans:
+        planes = _rans_planes(syms, lay)
+        for j, p in enumerate(rans):
+            acc[:, :, p] = planes[:, j]
+    for j, p in enumerate(lay.planes(MODE_CONST)):
+        acc[:, :, p] = const_vals[:, j:j + 1]
+    for j, p in enumerate(lay.planes(MODE_RAW)):
+        acc[:, :, p] = raw_vals[:, j]
+    # Little-endian byte planes, LSB first: the element's bits.
+    elems = acc.view(_BITS[lay.itemsize][0]).view(B, n_elems)
+    return zigzag_decode(elems) if lay.zigzag else elems
+
+
+def _rans_planes(syms, lay):
+    """(B*G, 32, S*128) row-linear symbols -> (B, n_rans, Tc*C) plane
+    streams: the row reshape (or, with flags bit6, the reassembly of each
+    row's real symbol range), then the drop of each channel's zero pad."""
+    B, n_rans = lay.B, len(lay.planes(MODE_RANS))
+    rows = syms.view(B, lay.G * GROUP_ROWS, lay.S * LANES)
+    n_stream = lay.n_stream
+    if lay.tail_split > 1:
+        # The flat segment list is not uniform (the ragged tail is M
+        # sub-rows): concatenate each row's real symbols.
+        seg_list = segment_counts(n_stream, lay.seg, lay.modes,
+                                  lay.tail_split)
+        planes = torch.cat([rows[:, r, :n] for r, (_p, _s, n)
+                            in enumerate(seg_list)], dim=1)
+        planes = planes.view(B, n_rans, n_stream)
+    else:
+        seg_eff = min(lay.seg, lay.S * LANES)
+        planes = rows[:, :n_rans * lay.n_seg, :seg_eff].reshape(
+            B, n_rans, lay.n_seg * seg_eff)[:, :, :n_stream]
+    if lay.aligned:
+        planes = planes.reshape(B, n_rans, lay.C, lay.tp)[:, :, :, :lay.Tc]
+    return planes.reshape(B, n_rans, lay.Tc * lay.C)
+
+
+def generic_samples(elems, heads, lay):
+    """(B, Tc*C) decoded elements + (B, C) heads -> the (B, T, C) samples
+    (bits): K4 for F-order time-diff chunks without a spatial diff (the
+    head seeds its exclusive scan in place of the JAX package's head
+    concatenation: same bytes), else layout, head row, spatial cumsum and
+    K5 passes. 1-byte data is widened to int16, scanned modulo 2^16 and
+    its low byte kept (mod 256 is a quotient of mod 2^16)."""
+    B, T, C, Tc = lay.B, lay.T, lay.C, lay.Tc
+    one_byte = lay.itemsize == 1
+
+    def widen(a):
+        return a.to(torch.int16) if one_byte else a
+
+    def narrow(a):
+        return (a & 255).to(torch.uint8) if one_byte else a
+
+    if lay.order == 'F' and lay.do_time_diff and not lay.do_spatial_diff:
+        out = cumsum_time_transposed(
+            widen(elems).view(B, C, Tc),
+            widen(heads) if lay.has_head else None, n_samples=T)
+        for _ in range(lay.diff_order - 1):
+            out = cumsum_time(out)
+        return narrow(out)
+    if lay.order == 'F':
+        chunks = elems.view(B, C, Tc).transpose(1, 2)
+    else:
+        chunks = elems.view(B, Tc, C)
+    if lay.has_head:
+        chunks = torch.cat([heads[:, None, :], chunks], dim=1)
+    if lay.do_spatial_diff:
+        chunks = cumsum_space(chunks)
+    if lay.do_time_diff:
+        x = widen(chunks)
+        for _ in range(lay.diff_order):
+            x = cumsum_time(x)
+        chunks = narrow(x)
+    return chunks.contiguous()
+
+
+def _to_tensors(states, words, lookup, dense_pk, counts, const_vals,
+                raw_vals, heads, device):
+    """Staged numpy arrays -> the decode fn's tensors on ``device``:
+    ``(states, words, lookup, dense_pk, counts, const_vals, raw_vals,
+    heads)``.
+
+    uint32 states and uint16 words travel as int32/int16 tensors holding
+    the same bits (torch has almost no unsigned arithmetic); heads as the
+    coding dtype's bits (``_BITS``).
     """
     N = states.shape[0]
 
@@ -121,10 +299,11 @@ def _to_tensors(states, words, octet_pk, dense_pk, counts, hi, heads,
         return torch.from_numpy(np.ascontiguousarray(a).view(view)).to(device)
 
     return (put(states, np.int32), put(words.reshape(N, -1), np.int16),
-            put(octet_pk, np.int32),
+            put(lookup, np.int32),
             put(dense_pk.reshape(N, GROUP_ROWS, 256), np.int32),
-            put(counts, np.int32), put(hi.astype(np.int32), np.int32),
-            put(heads, np.int16))
+            put(counts, np.int32), put(const_vals, np.uint8),
+            put(raw_vals, np.uint8),
+            put(heads, _BITS[heads.dtype.itemsize][1]))
 
 
 def args_from_jax_pack(raw_args, device):
@@ -133,15 +312,23 @@ def args_from_jax_pack(raw_args, device):
     ``raw_args`` are the ten arrays ``mtscomp_tpu``'s
     ``DeviceBatchDecoder.pack`` stages (``states, words, freqs, counts,
     coarse_pk, dense_pk, counts_b, const_vals, raw_vals, heads``), as
-    numpy or anything ``np.array`` takes, from a pack that chose its
-    octet variant (``coarse_pk[:, :, 0]`` then holds the octet rows).
-    Lets a test decode the identical staged batch in both packages.
+    numpy or anything ``np.array`` takes. That pack puts octet rows in
+    ``coarse_pk[:, :, 0]`` when its Pallas kernel runs (a rANS plane
+    is present and the word buffer fits its 16384-row window) and every
+    frequency table is 8-aligned, and coarse tables otherwise; the rule
+    is read back from ``freqs`` and ``words`` (its
+    ``MTSCOMP_DEC_LOOKUP`` override is not). Lets a test decode the
+    identical staged batch in both packages.
     """
-    (states, words, _freqs, counts, coarse_pk, dense_pk, _counts_b,
-     const_vals, _raw_vals, heads) = (np.array(a) for a in raw_args)
-    return _to_tensors(states, words, coarse_pk[:, :, 0, :], dense_pk,
-                       counts, const_vals[:, 0], heads,
-                       resolve_device(device))
+    (states, words, freqs, counts, coarse_pk, dense_pk, _counts_b,
+     const_vals, raw_vals, heads) = (np.array(a) for a in raw_args)
+    N = states.shape[0]
+    octet = (bool(counts.any()) and words.size // (N * LANES) <= 16384
+             and not np.any(freqs & 7))
+    lookup = (coarse_pk[:, :, 0, :] if octet
+              else coarse_pk.reshape(N, GROUP_ROWS, 256))
+    return _to_tensors(states, words, lookup, dense_pk, counts, const_vals,
+                       raw_vals, heads, resolve_device(device))
 
 
 def check_words_used(parsed_list, used):
@@ -221,7 +408,8 @@ class DeviceBatchDecoder:
 
     def decode_tensor(self, parsed_list, n_samples):
         """(B, n_samples, n_channels) decoded tensor on the device, in the
-        coding dtype's bits (int16 tensor for int16 and uint16 files).
+        coding dtype's bits (uint8, int16 or int32 tensor: an int16
+        tensor for int16 and uint16 files).
 
         Raises IOError when any group's stream-word consumption differs
         from its container's stored length (corrupt payload).
@@ -242,6 +430,10 @@ class DeviceBatchDecoder:
         :func:`check_words_used` for the corruption audit
         (:meth:`decode_tensor` does). Staging once and calling ``fn``
         repeatedly amortizes the host-to-device copy.
+
+        The staged arrays are the JAX package's (its ``freqs`` and
+        ``counts_b`` aside, which the port's K1 does not read), octet rows
+        or coarse tables as its Pallas kernel would take them.
         """
         B = len(parsed_list)
         C = self.reader.n_channels
@@ -250,10 +442,13 @@ class DeviceBatchDecoder:
         modes = tuple(first['modes'])
         seg = first['seg']
         has_head = first['n_head'] > 0
+        n_coded = T * C - first['n_head']
         n_stream = first['n_stream']
         aligned = first['aligned']
+        tail_split = first.get('tail_split', 1)
         rans_planes = [p for p, m in enumerate(modes) if m == MODE_RANS]
         const_planes = [p for p, m in enumerate(modes) if m == MODE_CONST]
+        raw_planes = [p for p, m in enumerate(modes) if m == MODE_RAW]
         n_seg = -(-n_stream // seg) if rans_planes else 0
         G = len(first['groups'])
         S = -(-min(seg, n_stream) // LANES) if rans_planes else 0
@@ -274,21 +469,13 @@ class DeviceBatchDecoder:
         fuse8, k = _fuse8_geom(modes, self.dtype, first['zigzag'],
                                self.order, do_time_diff, do_spatial_diff,
                                seg, tp, T, S, aligned, has_head)
-        if not fuse8:
-            raise NotImplementedError("Batch layout (modes %s, dtype %s, "
-                                      "order %s, aligned %s) is %s."
-                                      % (modes, self.dtype, self.order,
-                                         aligned, _NOT_YET))
-        if diff_order != 1:
-            raise NotImplementedError("time_diff_order %d is %s."
-                                      % (diff_order, _NOT_YET))
 
-        # Ragged-tail decision: the last group of each chunk holds only
-        # the leftover channels (C % k), one short segment or M bit6
-        # sub-rows. Packed after all full groups, it decodes as B short
-        # groups and feeds the finalize's second input.
+        # Ragged-tail decision (fuse8 only): the last group of each chunk
+        # holds only the leftover channels (C % k), one short segment or
+        # M bit6 sub-rows. Packed after all full groups, it decodes as B
+        # short groups and feeds the finalize's second input.
         tail = None
-        if G >= 2:
+        if fuse8 and G >= 2:
             tail_segs = first['groups'][-1]['segments']
             rem = C - (n_seg - 1) * k if k else 0
             base = (n_seg - 1) * seg
@@ -303,12 +490,10 @@ class DeviceBatchDecoder:
                     and (G - 1) * GROUP_ROWS * k + 128 <= 1024):
                 tail = (rem, -(-rem // 8) * 8,
                         tuple(n for _, _, n in tail_segs))
-        if first.get('tail_split', 1) > 1 and tail is None:
-            # bit6 sub-rows are not uniform k-channel rows: only the tail
-            # packing reads them.
-            raise NotImplementedError("A flags-bit6 layout outside the "
-                                      "ragged-tail packing is %s."
-                                      % _NOT_YET)
+        if tail_split > 1 and tail is None:
+            # bit6 sub-rows are not uniform k-channel rows: outside the
+            # tail packing, the generic route reassembles them.
+            fuse8 = False
 
         w_max = 1
         for parsed in parsed_list:
@@ -330,43 +515,69 @@ class DeviceBatchDecoder:
         states = np.full((NG, GROUP_ROWS, LANES), RANS_L, dtype=np.uint32)
         words = np.zeros((NG, WR * LANES), dtype=np.uint16)
         counts = np.zeros((NG, GROUP_ROWS), dtype=np.int32)
+        coarse_pk = np.zeros((NG, GROUP_ROWS, 2, LANES), dtype=np.int32)
         octet_pk = np.zeros((NG, GROUP_ROWS, LANES), dtype=np.int32)
         dense_pk = np.zeros((NG, GROUP_ROWS, 2, LANES), dtype=np.int32)
-        hi = np.zeros(B, dtype=np.uint8)
+        const_vals = np.zeros((B, max(len(const_planes), 1)), dtype=np.uint8)
+        raw_vals = np.zeros((B, max(len(raw_planes), 1),
+                             n_coded if raw_planes else 1), dtype=np.uint8)
         heads = np.zeros((B, C), dtype=self.dtype)
         table_cache = {}
+        needs_fixup2 = False
+        octet_ok = True
 
         def packed_table(parsed, p, start):
             # Identical tables across chunks (the common case) pack once.
+            nonlocal needs_fixup2, octet_ok
             table = ans_seg_freqs(parsed, p, start)
             key = table.tobytes()
             if key not in table_cache:
-                _cpk, dpk, _n2, orow = pack_device_tables(table)
-                if orow is None:
-                    raise NotImplementedError(
-                        "Frequency tables with boundaries off the 8-slot "
-                        "grid (files from other writers) are %s."
-                        % _NOT_YET)
-                table_cache[key] = (orow, dpk)
-            return table_cache[key]
+                table_cache[key] = pack_device_tables(table)
+            cpk, dpk, n2, orow = table_cache[key]
+            needs_fixup2 = needs_fixup2 or n2
+            if orow is None:
+                octet_ok = False
+                orow = 0
+            return cpk, dpk, orow
 
         for b, parsed in enumerate(parsed_list):
-            heads[b] = parsed['head'].view(self.dtype)
-            hi[b] = parsed['planes'][const_planes[0]]['value']
+            if has_head:
+                heads[b] = parsed['head'].view(self.dtype)
             for gi, g in enumerate(parsed['groups']):
                 i = group_slot(b, gi)
                 R = len(g['segments'])
                 states[i, :R] = g['states']
                 words[i, :g['words'].size] = g['words']
                 for r, (p, start, n) in enumerate(g['segments']):
-                    octet_pk[i, r], dense_pk[i, r] = packed_table(
-                        parsed, p, start)
+                    coarse_pk[i, r], dense_pk[i, r], octet_pk[i, r] = \
+                        packed_table(parsed, p, start)
                     counts[i, r] = n
+            for j, p in enumerate(const_planes):
+                const_vals[b, j] = parsed['planes'][p]['value']
+            for j, p in enumerate(raw_planes):
+                raw_vals[b, j] = parsed['planes'][p]['raw']
+
+        # K1's lookup: octet rows when every table is 8-aligned, else the
+        # coarse tables with one fixup, or two when some 16-slot bucket
+        # holds three symbols.
+        fixups = 0 if octet_ok else (2 if needs_fixup2 else 1)
+        lookup = octet_pk if fixups == 0 else coarse_pk.reshape(
+            NG, GROUP_ROWS, 256)
         self.last_tail = tail
-        fn = functools.partial(_decode_fuse8, B=B, T=T, G=G, S=S, k=k,
-                               tp=tp, tail=tail)
-        return fn, _to_tensors(states, words, octet_pk, dense_pk, counts,
-                               hi, heads, self.device)
+        if fuse8:
+            fn = functools.partial(_decode_fuse8, B=B, T=T, G=G, S=S, k=k,
+                                   tp=tp, tail=tail, fixups=fixups,
+                                   diff_order=diff_order)
+        else:
+            fn = functools.partial(_decode_generic, lay=Layout(
+                B=B, T=T, C=C, itemsize=self.dtype.itemsize, modes=modes,
+                n_seg=n_seg, seg=seg, G=G, S=S, order=self.order,
+                do_time_diff=do_time_diff, diff_order=diff_order,
+                do_spatial_diff=do_spatial_diff, zigzag=first['zigzag'],
+                has_head=has_head, aligned=aligned, tail_split=tail_split,
+                fixups=fixups))
+        return fn, _to_tensors(states, words, lookup, dense_pk, counts,
+                               const_vals, raw_vals, heads, self.device)
 
 
 def _read_payload(reader, idx):
@@ -391,14 +602,32 @@ def _peek_desc(reader, idx):
     return transform, tsplit
 
 
+def _uniform_batches(reader, chunk_ids, n_samples, dec):
+    """Cut a run into batches of consecutive chunks that ``supported()``
+    accepts together: ``[(chunk ids, parsed chunks), ...]``."""
+    batches = []
+    for idx in chunk_ids:
+        parsed = reader.codec.parse(_read_payload(reader, idx))
+        if batches and dec.supported([batches[-1][1][0], parsed], n_samples):
+            batches[-1][0].append(idx)
+            batches[-1][1].append(parsed)
+        else:
+            batches.append(([idx], [parsed]))
+    return batches
+
+
 def _decode_runs(reader, first_chunk, last_chunk, device):
-    """Decode chunks [first, last] run by run.
+    """Decode chunks [first, last] batch by batch.
 
     Runs are consecutive chunks with the same sample count and header
-    descriptor (flags bit5 transform, bit6 tail split), so each run is
-    one uniform batch. Yields ``(row offset, block)``: a (n, C) device
-    tensor in the coding dtype's bits, or a host ndarray in the reader's
-    dtype for runs that ``supported()`` sends to the host codec.
+    descriptor (flags bit5 transform, bit6 tail split). Each run is cut
+    further into mode-uniform batches (:func:`_uniform_batches`), so a
+    file whose plane modes change between chunks (a quiet chunk codes
+    its high byte CONST, a busy one rANS) still decodes on the device;
+    the JAX package sends such a run to the host codec. Yields ``(row
+    offset, block)``: a (n, C) device tensor in the coding dtype's bits,
+    or a host ndarray in the reader's dtype for batches that
+    ``supported()`` sends to the host codec.
     """
     global host_fallback_chunks
     bounds = reader.chunk_bounds
@@ -412,23 +641,22 @@ def _decode_runs(reader, first_chunk, last_chunk, device):
         else:
             runs.append(([idx], key))
     pos = 0
-    for chunk_ids, (ns, _desc) in runs:
-        n_span = len(chunk_ids) * ns
-        parsed = None
-        if ans:
-            parsed = [reader.codec.parse(_read_payload(reader, i))
-                      for i in chunk_ids]
-            dec = DeviceBatchDecoder(reader, device)
-        if parsed is not None and dec.supported(parsed, ns):
-            yield pos, dec.decode_tensor(parsed, ns).reshape(
-                n_span, reader.n_channels)
-        else:
-            logger.debug("Device decode unsupported for chunks %s; "
-                         "using host path.", chunk_ids)
-            host_fallback_chunks += len(chunk_ids)
-            yield pos, np.concatenate(
-                [reader._decompress_chunk(i)[1] for i in chunk_ids])
-        pos += n_span
+    for run_ids, (ns, _desc) in runs:
+        dec = DeviceBatchDecoder(reader, device) if ans else None
+        batches = (_uniform_batches(reader, run_ids, ns, dec) if ans
+                   else [(run_ids, None)])
+        for chunk_ids, parsed in batches:
+            n_span = len(chunk_ids) * ns
+            if parsed is not None and dec.supported(parsed, ns):
+                yield pos, dec.decode_tensor(parsed, ns).reshape(
+                    n_span, reader.n_channels)
+            else:
+                logger.debug("Device decode unsupported for chunks %s; "
+                             "using host path.", chunk_ids)
+                host_fallback_chunks += len(chunk_ids)
+                yield pos, np.concatenate(
+                    [reader._decompress_chunk(i)[1] for i in chunk_ids])
+            pos += n_span
 
 
 def _span(reader, first_chunk, last_chunk):

@@ -101,7 +101,7 @@ def test_finalize_u8_entry_points_are_their_twins_on_cpu():
         dd.cumsum_time_transposed_u8_tail_ref(p[:, :32], p[:, 32:],
                                               h[:, :32], h[:, 32:33], x))
     # The twins never count as launches.
-    assert dd.launches == dd.tail_launches == 0
+    assert dd.launches['finalize_u8'] == dd.launches['finalize_u8_tail'] == 0
 
 
 @pytest.mark.parametrize('case', ['n_samples', 'head_dtype', 'head_width',

@@ -3,7 +3,9 @@
 The port's ``pack`` stages the same arrays as the JAX package's, and its
 ``decode_batch`` returns the same bytes as the JAX package's (Pallas in
 interpret mode) and as the source, on the 129-channel ragged-tail
-geometry, the 128-channel uniform one and 40-channel int16/uint16.
+geometry, the 128-channel uniform one and 40-channel int16/uint16 (the
+fuse8 route; ``test_torch_generic.py`` holds the other layouts), and
+every frozen ans file decodes through the port.
 """
 
 import os
@@ -83,7 +85,7 @@ def test_pack_matches_jax_pack(tmp_path_, monkeypatch, name):
         _jfn, jargs = jdec.pack(parsed, T)
         assert dec.last_tail == jdec.last_tail == TAILS.get(name)
         want = tp.args_from_jax_pack(jargs, 'cpu')
-        assert len(args) == len(want) == 7
+        assert len(args) == len(want) == 8
         for a, b in zip(args, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
         assert fn.keywords['tail'] == dec.last_tail
@@ -122,45 +124,49 @@ def test_dropped_word_fails_the_audit(tmp_path_, monkeypatch, name):
         r.close()
 
 
-def _not_covered(r, arr, T, tmp_path):
-    """The JAX package decodes this file's batch on its device; the port
-    raises NotImplementedError naming the ROADMAP item, from the batch
-    decoder and from the reader, and never falls back to the host."""
+def _decodes_on_the_port(r, arr, T, tmp_path):
+    """The JAX package decodes this file's batch on its device, and so
+    does the port, byte for byte, from the batch decoder and from the
+    reader, with no chunk on the host codec."""
     try:
         parsed = _parsed(r)
         dec = tp.DeviceBatchDecoder(r, 'cpu')
         assert dec.supported(parsed, T)
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            dec.decode_batch(parsed, T)
-        assert np.array_equal(
-            JaxDecoder(r).decode_batch(parsed, T).reshape(arr.shape), arr)
+        got = dec.decode_batch(parsed, T)
+        want = JaxDecoder(r).decode_batch(parsed, T)
+        assert np.array_equal(got, want)
+        assert np.array_equal(got.reshape(arr.shape), arr)
     finally:
         r.close()
     mt.reset_launch_counts()
     rp = mt.decompress(tmp_path / 'p.cbin', tmp_path / 'p.ch', device='cpu',
                        quiet=True)
     try:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            rp.to_array()
+        assert np.array_equal(rp.to_array(), arr)
         assert mt.launch_counts()['host_fallback_chunks'] == 0
     finally:
         rp.close()
 
 
-def test_order2_is_not_covered_yet(tmp_path_, monkeypatch):
+def test_order2_fuse8_decodes(tmp_path_, monkeypatch):
+    """Second-order time diff on the fuse8 route (finalize, then K5)."""
     # Small steps keep the second diffs' high byte constant: fuse8 + K5.
     arr, r, T = _file(tmp_path_, 'ragged129', monkeypatch, step=0.5,
                       time_diff_order=2)
-    _not_covered(r, arr, T, tmp_path_)
+    fn, _args = tp.DeviceBatchDecoder(r, 'cpu').pack(_parsed(r), T)
+    assert fn.func is tp._decode_fuse8 and fn.keywords['diff_order'] == 2
+    _decodes_on_the_port(r, arr, T, tmp_path_)
 
 
-def test_generic_layout_is_not_covered_yet(tmp_path_, monkeypatch):
+def test_raw_low_plane_takes_generic_route(tmp_path_, monkeypatch):
     """The 40-channel signal of the JAX fuse8 test codes its low byte
-    plane RAW, which takes the JAX package's generic branch (K4)."""
+    plane RAW, which takes the generic route (K4)."""
     monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     arr = to_int16(make_signal('colored', ns=4 * 300, nc=40))
     r = _compressed(tmp_path_, arr, 300)
-    _not_covered(r, arr, 300, tmp_path_)
+    fn, _args = tp.DeviceBatchDecoder(r, 'cpu').pack(_parsed(r), 300)
+    assert fn.func is tp._decode_generic
+    _decodes_on_the_port(r, arr, 300, tmp_path_)
 
 
 @pytest.mark.parametrize('name', GEOMS)
@@ -191,8 +197,8 @@ def test_reader_entry_points(tmp_path_, monkeypatch, name):
         counts = mt.launch_counts()
         assert counts['host_fallback_chunks'] == 0
         # CPU decodes run the twins: no kernel launch is counted.
-        assert counts['rans_decode'] == counts['finalize_u8'] == 0
-        assert counts['finalize_u8_tail'] == 0
+        assert len(counts) == 12
+        assert not any(counts.values())
     finally:
         rp.close()
 
@@ -294,9 +300,10 @@ GOLDEN = Path(__file__).resolve().parent / 'golden'
                                   'adapt_int16_13ch', 'f32_11ch',
                                   'uint8_7ch'])
 def test_golden_files(stem):
-    """The frozen ragged-tail artifact decodes byte-exactly through the
-    port; the other frozen ans files take the JAX package's generic
-    device branches, which this slice refuses rather than hiding."""
+    """Every frozen ans file decodes byte-exactly through the port with
+    no chunk on the host codec: the ragged-tail artifact on the fuse8
+    route, the others (multi-table, order 2, adaptive bit5, bitcast
+    float32, uint8) on the generic one."""
     mt.reset_launch_counts()
     rp = mt.decompress(GOLDEN / ('ans_%s.cbin' % stem),
                        GOLDEN / ('ans_%s.ch' % stem), device='cpu',
@@ -304,12 +311,37 @@ def test_golden_files(stem):
     try:
         want = np.fromfile(GOLDEN / ('np_%s.bin' % stem),
                            rp.dtype).reshape(-1, rp.n_channels)
-        if stem == 'ts_int16_129ch':
-            assert np.array_equal(rp.to_array(), want)
-            assert mt.launch_counts()['host_fallback_chunks'] == 0
-        else:
-            with pytest.raises(NotImplementedError, match='ROADMAP'):
-                rp.to_array()
-            assert np.array_equal(rp[:], want)       # host windows
+        assert np.array_equal(rp.to_array(), want)
+        assert np.array_equal(rp.to_tensor().numpy(), want)
+        assert mt.launch_counts()['host_fallback_chunks'] == 0
+        assert np.array_equal(rp[:], want)           # host windows
+    finally:
+        rp.close()
+
+
+def test_mixed_plane_modes_decode_in_mode_uniform_batches(monkeypatch):
+    """A run whose plane modes change between chunks (the frozen order-2
+    file: chunk 0 codes its high byte CONST, chunks 1 and 2 rANS; chunk
+    3 is shorter) decodes on the device one mode-uniform batch at a
+    time, where the JAX package sends the run to the host codec."""
+    batches = []
+    real = tp.DeviceBatchDecoder.decode_tensor
+
+    def spy(self, parsed_list, n_samples):
+        batches.append(len(parsed_list))
+        return real(self, parsed_list, n_samples)
+
+    monkeypatch.setattr(tp.DeviceBatchDecoder, 'decode_tensor', spy)
+    stem = 'o2_int16_17ch'
+    rp = mt.decompress(GOLDEN / ('ans_%s.cbin' % stem),
+                       GOLDEN / ('ans_%s.ch' % stem), device='cpu',
+                       quiet=True)
+    try:
+        want = np.fromfile(GOLDEN / ('np_%s.bin' % stem),
+                           rp.dtype).reshape(-1, rp.n_channels)
+        mt.reset_launch_counts()
+        assert np.array_equal(rp.to_array(), want)
+        assert batches == [1, 2, 1]
+        assert mt.launch_counts()['host_fallback_chunks'] == 0
     finally:
         rp.close()

@@ -227,7 +227,7 @@ def test_args_from_jax_pack_dtypes(tmp_path_, monkeypatch):
         args = args_from_jax_pack(jargs, 'cpu')
         assert [a.dtype for a in args] == [
             torch.int32, torch.int16, torch.int32, torch.int32,
-            torch.int32, torch.int32, torch.int16]
+            torch.int32, torch.uint8, torch.uint8, torch.int16]
         assert np.array_equal(args[0].numpy().view(np.uint32),
                               np.asarray(jargs[0]))
         assert np.array_equal(

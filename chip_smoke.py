@@ -9,24 +9,30 @@ Run from the repository root, on a machine with an NVIDIA Hopper GPU,
 Phases (any failure raises and exits non-zero):
 
 a. print the card's name and power limit (``nvidia-smi``);
-b. build the port's CUDA kernels from ``mtscomp_tpu_torch/csrc``;
+b. build the port's CUDA kernels from ``mtscomp_tpu_torch/csrc`` and
+   its C++ host runtime from ``mtscomp_tpu_torch/native``;
 d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks) and
-   compress them with the host codec (ans v2):
+   compress them with the port's own host codec (``device='none'``,
+   ans v2):
    - the fuse8 path: random walks with diff std 6, 32 s x 385 int16
      channels, 8 s x 384 channels and 8 s x 385 uint16 channels;
    - the generic path: 32 s x 385 int16 channels of the same walk with
      spikes (a -60, -90, +150 step over 3 samples, 5 per channel per
      second), which code both byte planes;
    - the branches, 2 s each at 385 channels: second-order time diff on
-     the fuse8 route (an LFP-like band) and the generic route, C order,
-     spatial diff, flags bit6 without the tail packing, uint8, int8,
-     int32, bitcast float32 under a second-order diff, a RAW low plane,
-     and tables from another writer needing one and two fixups;
+     the fuse8 route (an LFP-like band) and the generic route, C order
+     (plane tables), spatial diff, flags bit6 without the tail packing,
+     uint8, int8, int32, bitcast float32 under a second-order diff, a
+     RAW low plane, and tables from another writer needing one and two
+     fixups; and 8 s each, a file whose plane modes change after 4 s
+     (walk, then spikes) and a drifting file compressed with adaptive
+     windows of 4 chunks (walk, then a slow oscillation);
 c. hold every kernel form against its plain PyTorch twin on the card,
    at the shapes the decode of those files gives it (byte equality),
-   and decode the CPU tests' small geometries on the card;
-e-g. path by path, with every launch count set to 0 just before and
-   read just after: decode each file through
+   K6 on the encode's B=8 batches of both 32-s files, and decode the
+   CPU tests' small geometries on the card;
+e-g. decode path by path, with every launch count set to 0 just before
+   and read just after: decode each file through
    ``mtscomp_tpu_torch.decompress(..., device='cuda')`` with
    ``.to_array()`` and ``.tofile()`` (and ``.to_tensor()`` for the two
    32-s files), check each byte for byte against its source, check
@@ -34,16 +40,27 @@ e-g. path by path, with every launch count set to 0 just before and
    went to the host codec;
 h. drop one word, then half the words, of one group's stream and
    expect the word audit's IOError, on both routes;
+k. encode path by path (the two 32-s files, then the branch files),
+   counts set to 0 just before and read just after: compress each
+   through ``mtscomp_tpu_torch.compress(..., device='cuda')``, check the
+   ``.cbin`` and ``.ch`` are byte-identical to the host route's, that K6
+   launched and that no chunk went to the host codec (int32 excepted:
+   ``supported()`` declines it, and all its chunks must go there), and
+   decode each device-encoded file through the port to its source;
 i. time the staged decodes (the batch staged on the card once, CUDA
-   events, median of repeats) and each kernel form against its twin.
+   events, median of repeats), K6 and the device encode staged at B=8
+   (checked against the host codec first), ``compress()`` of the 32-s
+   files on both routes and by layer, and each kernel form against its
+   twin, its bound and, where one PyTorch call computes the same
+   function, that call.
 
 The last four lines are a JSON summary of the end-to-end and staged
 timings (with the kernel forms no path launches, which are held
 against their twins only), a JSON object with one entry per kernel
-form that the paths launch (its launches in total and by path), the
-card's name and power limit, and ``{"ok": true, "device": {"platform":
-"gpu", ...}}``. Without a CUDA GPU it exits with code 2 and prints no
-result.
+form that the paths launch (its launches in total and by path, its
+time, its twin's, its bound and the library call's), the card's name
+and power limit, and ``{"ok": true, "device": {"platform": "gpu",
+...}}``. Without a CUDA GPU it exits with code 2 and prints no result.
 """
 
 import json
@@ -57,16 +74,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-import mtscomp_tpu.codec.ans as ans_codec
 import mtscomp_tpu_torch as mt
-from mtscomp_tpu import compress
-from mtscomp_tpu.models.rans import LANES
+import mtscomp_tpu_torch.codec.ans as ans_codec
+from mtscomp_tpu_torch import native
+from mtscomp_tpu_torch.models.rans import LANES
 from mtscomp_tpu_torch.ops import _build
 from mtscomp_tpu_torch.ops import device_delta as dd
 from mtscomp_tpu_torch.ops import rans_decode as rd
+from mtscomp_tpu_torch.ops import rans_encode as renc
 from mtscomp_tpu_torch.parallel.pipeline import (
-    DeviceBatchDecoder, _decode_fuse8, _read_payload, check_words_used,
-    fuse8_planes, generic_elems)
+    DeviceBatchDecoder, DeviceBatchEncoder, _decode_fuse8, _read_payload,
+    check_words_used, fuse8_planes, generic_elems)
 
 SR = 30000                    # samples per second = samples per chunk
 BATCH = 8                     # chunks per staged batch (the bench's)
@@ -76,6 +94,12 @@ BRANCH_SECONDS = 2            # length of each branch file
 REPS = 8                      # timed repeats per measurement
 TWIN_REPS = 2                 # timed repeats of a twin (slow, launch bound)
 DEVICE = 'cuda'
+#: The H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth,
+#: and the float32 rate outside the tensor cores, taken as the scalar
+#: integer ALU's ceiling too (the card's int32 rate is at most that, so
+#: the time bound stays a lower bound).
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 
 #: Kernel forms: name -> (launch counter of that form, source, TPU
 #: kernel).
@@ -118,6 +142,9 @@ KERNELS = {
     'cumsum_time int32 (K5)': (
         'cumsum_time_i32', 'mtscomp_tpu_torch/csrc/cumsum_time.cu',
         'mtscomp_tpu/ops/device_delta.py:89'),
+    'rans_encode_groups (K6)': (
+        'rans_encode', 'mtscomp_tpu_torch/csrc/rans_encode.cu',
+        'mtscomp_tpu/ops/pallas_rans_enc.py:86'),
 }
 
 #: ptxas entry-name fragments -> the kernel form they compile.
@@ -130,13 +157,16 @@ PTXAS_NAMES = (('rans_decode_groups_kernelILi0E', 'K1 octet'),
                ('scan_transposed_kernelIiLb1E', 'K4 i32 seeded'),
                ('scan_transposed_kernelIiLb0E', 'K4 i32 incl'),
                ('cumsum_time_kernelIsE', 'K5 i16'),
-               ('cumsum_time_kernelIiE', 'K5 i32'))
+               ('cumsum_time_kernelIiE', 'K5 i32'),
+               ('rans_encode_groups_kernel', 'K6'))
 
 ORDER1 = {'time_diff_order': 1, 'do_spatial_diff': False}
 
 #: Recordings: name -> (signal, seconds, channels, dtype, seed, compress
 #: options, foreign writer's minimum frequency or None, expected
-#: (route, rANS planes, bit6, K1 fixups)). Route 'fuse8' or 'generic'.
+#: (route, rANS planes, bit6, K1 fixups) of its first batch, or None where
+#: the modes or the transform change between chunks). Route 'fuse8' or
+#: 'generic'.
 RECORDINGS = {
     'int16_385ch': ('walk', SECONDS, 385, 'int16', 0, ORDER1, None,
                     ('fuse8', 1, True, 0)),
@@ -153,7 +183,7 @@ RECORDINGS = {
                        {'time_diff_order': 2, 'do_spatial_diff': False},
                        None, ('generic', 2, False, 0)),
     'c_order': ('spiky', BRANCH_SECONDS, 385, 'int16', 6,
-                dict(ORDER1, chunk_order='C'), None,
+                dict(ORDER1, chunk_order='C', ans_table_mode='plane'), None,
                 ('generic', 2, False, 0)),
     'spatial': ('spiky', BRANCH_SECONDS, 385, 'int16', 7,
                 {'time_diff_order': 1, 'do_spatial_diff': True}, None,
@@ -178,6 +208,13 @@ RECORDINGS = {
     'foreign_2fixups': ('heavy', BRANCH_SECONDS, 385, 'int16', 15,
                         dict(ORDER1, ans_table_mode='plane'), 9,
                         ('generic', 2, False, 2)),
+    # One batch of 8 chunks: 4 with a constant high byte, then 4 with
+    # both planes coded (two mode-uniform device sub-batches).
+    'mixed_modes': ('walk_then_spiky', SHORT_SECONDS, 385, 'int16', 16,
+                    dict(ORDER1, n_threads=BATCH), None, None),
+    # Windows of 4 chunks re-probe the transform (bit5 stamps).
+    'adaptive': ('walk_then_slow', SHORT_SECONDS, 385, 'int16', 17,
+                 {'transform_adapt': 4, 'n_threads': BATCH}, None, None),
 }
 
 #: Paths, each driven with the counts set to 0 just before it: name ->
@@ -188,18 +225,37 @@ PATHS = {
     'generic': (('spiky_int16_385ch',),
                 ('rans_decode_octet', 'scan_transposed_i16_seeded')),
     'branches': (tuple(name for name, r in RECORDINGS.items()
-                       if r[1] == BRANCH_SECONDS),
+                       if r[1] == BRANCH_SECONDS)
+                 + ('mixed_modes', 'adaptive'),
                  ('rans_decode_octet', 'rans_decode_coarse_1fixup',
                   'rans_decode_coarse_2fixups', 'finalize_u8_tail',
                   'scan_transposed_i16_seeded', 'scan_transposed_i32_seeded',
                   'cumsum_time_i16', 'cumsum_time_i32')),
 }
 
+#: Encode paths, each driven with the counts set to 0 just before it:
+#: name -> (recordings, kernel forms that must have launched). Files from
+#: another writer's tables are not this writer's bytes, and bitcast
+#: float32 codes 4-byte integers, which the device encode declines.
+ENCODE_PATHS = {
+    'encode_main': (('int16_385ch', 'spiky_int16_385ch'), ('rans_encode',)),
+    'encode_branches': (('int16_384ch', 'uint16_385ch', 'order2_fuse8',
+                         'order2_generic', 'c_order', 'spatial',
+                         'bit6_spatial', 'uint8', 'int8', 'int32',
+                         'raw_low_plane', 'mixed_modes', 'adaptive'),
+                        ('rans_encode',)),
+}
+#: Recordings whose every chunk the device route must leave to the host
+#: codec (``supported()`` declines 4-byte integers).
+HOST_ENCODED = {'int32'}
+ENCODED = {name for names, _forms in ENCODE_PATHS.values() for name in names}
+
 #: The forms some path launches. The others, K4's inclusive scans, run
 #: only for chunks without a stored head, which this codec's writer
 #: never makes (it stores one for every 2-D chunk): they are held against
 #: their twins and timed, and reported apart from the path kernels.
-ON_PATH = {form for _names, forms in PATHS.values() for form in forms}
+ON_PATH = {form for paths in (PATHS, ENCODE_PATHS)
+           for _names, forms in paths.values() for form in forms}
 
 
 def log(msg):
@@ -270,7 +326,7 @@ def heavy_tailed_steps(rng, shape):
 
 def foreign_quantizer(min_freq):
     """A stand-in for another writer of the ans format: a drop-in for
-    ``mtscomp_tpu.codec.ans._quantize_rows`` that quantizes at unit
+    ``mtscomp_tpu_torch.codec.ans._quantize_rows`` that quantizes at unit
     granularity (this codec's writer uses an 8-slot grid, which K1 reads
     through octet tables), as the JAX package's
     ``test_foreign_min8_tables_container_roundtrip`` does, with every
@@ -319,8 +375,18 @@ def lfp_second(rng, s, n_channels, freq, phase):
             + rng.normal(0.0, 1.0, size=(SR, n_channels)))
 
 
+def slow_second(s, n_channels, freq, phase):
+    """One second of a slow oscillation without noise: amplitude 2000 at
+    5-20 Hz, whose second time diff is far smaller than its first (the
+    transform probe picks order 2 for it, order 1 for a walk)."""
+    t = (s * SR + np.arange(SR))[:, None] / SR
+    return 2000.0 * np.sin(2 * np.pi * freq * t + phase)
+
+
 def make_recording(path, kind, seconds, n_channels, dtype, seed):
-    """Seeded signal, written one 1-s chunk at a time."""
+    """Seeded signal, written one 1-s chunk at a time. The kinds
+    ``walk_then_spiky`` and ``walk_then_slow`` switch from the walk to
+    the spiky walk or the slow oscillation halfway through."""
     rng = np.random.default_rng(seed)
     arr = np.empty((seconds * SR, n_channels), dtype=dtype)
     level = np.zeros(n_channels)
@@ -328,11 +394,16 @@ def make_recording(path, kind, seconds, n_channels, dtype, seed):
     phase = rng.uniform(0.0, 2 * np.pi, size=n_channels)
     with open(path, 'wb') as f:
         for s in range(seconds):
+            late = s >= seconds // 2
             if kind == 'lfp':
                 walk = lfp_second(rng, s, n_channels, freq, phase)
+            elif kind == 'walk_then_slow' and late:
+                walk = level + slow_second(s, n_channels, freq, phase)
             else:
+                sub = {'walk_then_spiky': 'spiky' if late else 'walk',
+                       'walk_then_slow': 'walk'}.get(kind, kind)
                 walk = level + np.cumsum(
-                    signal_second(rng, kind, n_channels), axis=0)
+                    signal_second(rng, sub, n_channels), axis=0)
             level = walk[-1]
             block = to_dtype(walk, dtype)
             arr[s * SR:(s + 1) * SR] = block
@@ -347,35 +418,88 @@ class Recording:
         (kind, seconds, n_channels, dtype, seed, opts, min_freq,
          self.expect) = RECORDINGS[name]
         self.name = name
-        raw = workdir / (name + '.bin')
+        self.raw = workdir / (name + '.bin')
         self.cbin = workdir / (name + '.cbin')
         self.ch = workdir / (name + '.ch')
         self.workdir = workdir
+        self.kwargs = dict(sample_rate=float(SR), n_channels=n_channels,
+                           dtype=dtype, algorithm='ans', quiet=True,
+                           check_after_compress=False, **opts)
         t0 = time.perf_counter()
-        self.arr = make_recording(raw, kind, seconds, n_channels, dtype, seed)
+        self.arr = make_recording(self.raw, kind, seconds, n_channels, dtype,
+                                  seed)
         t1 = time.perf_counter()
         quantize_rows = ans_codec._quantize_rows
         if min_freq is not None:
             ans_codec._quantize_rows = foreign_quantizer(min_freq)
         try:
-            compress(raw, self.cbin, self.ch, sample_rate=float(SR),
-                     n_channels=n_channels, dtype=dtype, algorithm='ans',
-                     quiet=True, check_after_compress=False, device='none',
-                     **opts)
+            mt.compress(self.raw, self.cbin, self.ch, device='none',
+                        **self.kwargs)
         finally:
             ans_codec._quantize_rows = quantize_rows
         t2 = time.perf_counter()
-        raw.unlink()
+        #: compress() on the host route, host clock (s).
+        self.host_compress_s = t2 - t1
+        if name not in ENCODED:
+            self.raw.unlink()
         log('d. %s: %d s x %d ch %s (%s), %.1f MB raw -> %.1f MB (x%.3f); '
             'made in %.1f s, host compress %.1f s'
             % (name, seconds, n_channels, dtype, kind, self.arr.nbytes / 1e6,
                self.cbin.stat().st_size / 1e6,
                self.arr.nbytes / self.cbin.stat().st_size, t1 - t0, t2 - t1))
 
+    def device_compress(self):
+        """compress() on the device route: the same .cbin and .ch bytes
+        as the host route's, decoding through the port to the source.
+        Returns the compress() host-clock seconds and the chunks the
+        route left to the host codec."""
+        cbin = self.workdir / (self.name + '.dev.cbin')
+        ch = self.workdir / (self.name + '.dev.ch')
+        before = mt.launch_counts()['host_encoded_chunks']
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mt.compress(self.raw, cbin, ch, device=DEVICE, **self.kwargs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_host = mt.launch_counts()['host_encoded_chunks'] - before
+        require(cbin.read_bytes() == self.cbin.read_bytes(),
+                '%s: the device-encoded .cbin differs from the host '
+                'route\'s' % self.name)
+        require(ch.read_bytes() == self.ch.read_bytes(),
+                '%s: the device-encoded .ch differs from the host route\'s'
+                % self.name)
+        r = mt.decompress(cbin, ch, device=DEVICE, quiet=True,
+                          check_after_decompress=False)
+        try:
+            require(np.array_equal(r.to_array(), self.arr),
+                    '%s: the device-encoded file does not decode to its '
+                    'source' % self.name)
+            n_chunks = r.n_chunks
+        finally:
+            r.close()
+        cbin.unlink()
+        log('k. %s: compress(device=%r) %.3f s (host route %.3f s), '
+            'byte-identical, %d of %d chunks on the host codec, decodes '
+            'to the source' % (self.name, DEVICE, dt, self.host_compress_s,
+                               n_host, n_chunks))
+        return dt, n_host, n_chunks
+
     def reader(self):
         # The smoke test compares every byte itself: no host re-decode.
         return mt.decompress(self.cbin, self.ch, device=DEVICE, quiet=True,
                              check_after_decompress=False)
+
+    def writer_batch(self, n_chunks=BATCH):
+        """An open port Writer (device route) over the recording and its
+        first ``n_chunks`` chunks as one (B, T, C) array."""
+        w = mt.Writer(device=DEVICE, **{
+            k: v for k, v in self.kwargs.items()
+            if k not in ('sample_rate', 'n_channels', 'dtype')})
+        w.open(self.raw, sample_rate=float(SR),
+               n_channels=self.kwargs['n_channels'],
+               dtype=self.kwargs['dtype'])
+        return w, np.stack([np.asarray(w.get_chunk(i))
+                            for i in range(min(n_chunks, w.n_chunks))])
 
     def staged(self, n_chunks=BATCH):
         """(reader, parsed chunks, fn, staged tensors) for the first
@@ -525,9 +649,125 @@ def check_kernels(recs):
             'byte' % (name, len(parsed), k1_args[-1], fn.func.__name__,
                       ', '.join(done)))
         staged[name] = (r, parsed, fn, args)
-    require(set(calls) == set(KERNELS), 'the staged batches ran kernels %s, '
-            'expected %s' % (sorted(calls), sorted(KERNELS)))
+    decode_forms = {n for n, (key, _s, _r) in KERNELS.items()
+                    if key != 'rans_encode'}
+    require(set(calls) == decode_forms, 'the staged batches ran kernels %s, '
+            'expected %s' % (sorted(calls), sorted(decode_forms)))
     return calls, staged
+
+
+def k6_compare(args):
+    """K6 and its twin on the same staged inputs: (max_abs_err over the
+    states, the word counts and each group's stream, kernel outputs)."""
+    got = renc.encode_groups(*args)
+    ref = renc.encode_groups_ref(*args)
+    torch.cuda.synchronize()
+    cap = args[4]
+    live = (torch.arange(cap, device=args[0].device)[None, :]
+            >= cap - ref[2][:, None].long())
+    err = max(max_abs_err(got[0], ref[0]), max_abs_err(got[2], ref[2]),
+              max_abs_err(got[1], ref[1], live))
+    require(err == 0, 'rans_encode_groups disagrees with its twin (max abs '
+            'err %d)' % err)
+    return err, got
+
+
+def check_encode_kernel(recs):
+    """Phase c for K6: each 32-s file's first B=8 chunks through the
+    device encode (payload 0 checked against the host codec), then K6
+    held against its twin on the staged inputs. Returns ``{name:
+    (encoder, staged chunks, K6 args, err)}``."""
+    out = {}
+    for name in ('int16_385ch', 'spiky_int16_385ch'):
+        w, chunks = recs[name].writer_batch()
+        try:
+            enc = DeviceBatchEncoder(w, device=DEVICE)
+            x = torch.from_numpy(chunks).to(DEVICE)
+            payloads = enc.encode_batch(x)
+            host = w.codec.encode(w._transform_chunk(chunks[0]),
+                                  order=w.chunk_order)
+            require(payloads[0] == host, '%s: the device encode of chunk 0 '
+                    'differs from the host codec\'s' % name)
+            args = enc.last_kernel_args
+            err, (_st, _w, nw) = k6_compare(args)
+            log('c. %s: K6 on %d groups x %d steps, %d words, equals its '
+                'twin (states, counts, streams); payload 0 equals the host '
+                'codec\'s' % (name, args[0].shape[0], args[0].shape[2] //
+                                LANES, int(nw.sum())))
+            out[name] = (enc, x, args, err)
+        finally:
+            w.close()
+    return out
+
+
+def drive_encode_paths(recs):
+    """Phase k, path by path: counts set to 0 just before each path and
+    read just after. Returns (compress() seconds by file, counts by
+    path)."""
+    times, counts_by_path = {}, {}
+    for path, (names, kernels) in ENCODE_PATHS.items():
+        mt.reset_launch_counts()
+        for name in names:
+            dt, n_host, n_chunks = recs[name].device_compress()
+            want = n_chunks if name in HOST_ENCODED else 0
+            require(n_host == want, '%s: %d chunks went to the host codec, '
+                    'expected %d' % (name, n_host, want))
+            times[name] = {'device_s': dt,
+                           'host_s': recs[name].host_compress_s}
+        torch.cuda.synchronize()
+        counts = mt.launch_counts()
+        counts_by_path[path] = counts
+        log('k. launch counts over the %s path: %s'
+            % (path, json.dumps(counts)))
+        for key in kernels:
+            require(counts[key] > 0, 'kernel %s never launched on the %s '
+                    'path' % (key, path))
+        want = sum(recs[n].arr.shape[0] // SR for n in names
+                   if n in HOST_ENCODED)
+        require(counts['host_encoded_chunks'] == want,
+                '%d chunks went to the host codec on the %s path, expected '
+                '%d' % (counts['host_encoded_chunks'], path, want))
+    return times, counts_by_path
+
+
+def encode_layers(rec):
+    """compress() of a whole 32-s file by layer, host clock, one Writer
+    batch (8 chunks) at a time as its device route runs them: read (the
+    memmapped chunks), then the encoder's layers (each ends in a
+    synchronize). Write-back, hashing and the sidecar are not in it."""
+    w, _ = rec.writer_batch(1)
+    try:
+        enc = DeviceBatchEncoder(w, device=DEVICE)
+        enc.profile = {'read': 0.0}
+        t_all = time.perf_counter()
+        for b0 in range(0, w.n_chunks, BATCH):
+            t0 = time.perf_counter()
+            chunks = np.stack([np.asarray(w.get_chunk(i)) for i in
+                               range(b0, min(b0 + BATCH, w.n_chunks))])
+            enc.profile['read'] += time.perf_counter() - t0
+            enc.encode_batch(chunks)
+        total = time.perf_counter() - t_all
+    finally:
+        w.close()
+    return dict(enc.profile, total_s=total, raw_mb=rec.arr.nbytes / 1e6)
+
+
+def time_encode(encoded):
+    """Phase i, encode: K6 on the staged B=8 inputs and the staged
+    device encode (the batch on the card), CUDA events, median of
+    REPS; GB/s of raw input."""
+    out = {}
+    for name, (enc, x, args, _err) in encoded.items():
+        raw = x.numel() * x.element_size()
+        k6 = cuda_ms(lambda: renc.encode_groups(*args), REPS)
+        full = cuda_ms(lambda: enc.encode_batch(x), REPS)
+        out[name] = {'batch_chunks': x.shape[0], 'k6_ms': k6,
+                     'k6_gbps': raw / 1e6 / k6, 'encode_ms': full,
+                     'encode_gbps': raw / 1e6 / full}
+        log('i. staged encode %s, B=%d: K6 %.4f ms (%.3f GB/s of raw '
+            'input), device encode %.3f ms (%.3f GB/s)'
+            % (name, x.shape[0], k6, raw / 1e6 / k6, full, raw / 1e6 / full))
+    return out
 
 
 def decode_through_reader(rec, with_tensor=False):
@@ -598,9 +838,9 @@ def check_small_geometries(workdir):
         raw, cbin, ch = (workdir / ('small' + ext)
                          for ext in ('.bin', '.cbin', '.ch'))
         arr.tofile(raw)
-        compress(raw, cbin, ch, sample_rate=float(T), n_channels=C,
-                 dtype=dtype, algorithm='ans', quiet=True,
-                 check_after_compress=False, device='none', **opts)
+        mt.compress(raw, cbin, ch, sample_rate=float(T), n_channels=C,
+                    dtype=dtype, algorithm='ans', quiet=True,
+                    check_after_compress=False, device='none', **opts)
         for device in (DEVICE, 'cpu'):
             r = mt.decompress(cbin, ch, device=device, quiet=True,
                               check_after_decompress=False)
@@ -698,28 +938,92 @@ def time_staged(recs, staged):
     return stagings
 
 
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def work(key, args, out):
+    """``(bytes, operations)`` a kernel form's call must move and do on
+    this run's inputs: each input read once and each output written
+    once, where the data decide it (live symbols, words used or
+    emitted) as this run's data need it. Operations are integer ALU
+    operations per element: 12 a decoded symbol (slot lookup, table
+    reads, multiply-add, renorm test and shift), 15 an encoded symbol
+    (renorm test and shift, multiply-high, shifts, multiply-add), 6 a
+    finalized sample (combine, unzigzag, add), 1 a scanned element."""
+    if key.startswith('rans_decode'):
+        states, words, lookup, dense, counts = args[:5]
+        syms, used = out
+        live = int(counts.sum())
+        return (_nbytes(states) + 2 * int(used.sum()) + _nbytes(lookup)
+                + _nbytes(dense) + _nbytes(counts) + live + _nbytes(used),
+                12 * live)
+    if key.startswith('finalize'):
+        B, T, C = out.shape
+        small = sum(_nbytes(a) for a in args if a.dim() < 3)  # heads, hi
+        return B * C * (T - 1) + small + _nbytes(out), 6 * out.numel()
+    if key.startswith('scan_transposed'):
+        return (sum(_nbytes(a) for a in args) + _nbytes(out),
+                out.numel())
+    if key.startswith('cumsum_time'):
+        return _nbytes(args[0]) + _nbytes(out), out.numel()
+    if key == 'rans_encode':
+        _symbols, pk, rcp, counts, _cap = args
+        states, _words, n_words = out
+        live = int(counts.sum())
+        return (live + _nbytes(pk) + _nbytes(rcp) + _nbytes(counts)
+                + _nbytes(states) + 2 * int(n_words.sum())
+                + _nbytes(n_words), 15 * live)
+    raise KeyError(key)
+
+
+def library_call(key, args):
+    """One PyTorch call computing the same function, or None: the time
+    cumsum for K5, and for K4 the cumsum over time of the transposed
+    view (the inclusive scan; the head-seeded form adds the head)."""
+    d = args[0]
+    if key.startswith('cumsum_time'):
+        return lambda: torch.cumsum(d, dim=1, dtype=d.dtype)
+    if key.startswith('scan_transposed'):
+        return lambda: torch.cumsum(d.transpose(1, 2), dim=1, dtype=d.dtype)
+    return None
+
+
 def time_kernels(calls, counts_by_path):
-    """Phase i, kernel forms against their twins. Returns the entries of
-    the forms the paths launch and, apart, of those no path launches;
-    ``launches`` is the form's counter summed over the paths' runs,
-    ``launches_by_path`` the counter of each path's run."""
+    """Phase i, kernel forms against their twins, their bounds and the
+    library calls. Returns the entries of the forms the paths launch
+    and, apart, of those no path launches; ``launches`` is the form's
+    counter summed over the paths' runs, ``launches_by_path`` the counter
+    of each path's run."""
     on_path, off_path = [], []
     for name, (key, source, replaces) in KERNELS.items():
         kernel, twin, args, kwargs, err = calls[name]
+        out = kernel(*args, **kwargs)
+        nbytes, ops = work(key, args, out)
+        del out
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
         ms = cuda_ms(lambda: kernel(*args, **kwargs), REPS)
         plain_ms = cuda_ms(lambda: twin(*args, **kwargs), TWIN_REPS)
+        lib = library_call(key, args)
+        library_ms = cuda_ms(lib, REPS) if lib is not None else None
         by_path = {path: c[key] for path, c in counts_by_path.items()}
         entry = {'name': name, 'route': 'cuda', 'source': source,
                  'replaces': replaces, 'launches': sum(by_path.values()),
                  'launches_by_path': by_path, 'max_abs_err': err, 'ms': ms,
-                 'plain_ms': plain_ms}
+                 'plain_ms': plain_ms, 'bound_ms': 1e3 * max(t_bytes, t_ops),
+                 'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+                 'library_ms': library_ms, 'bytes': nbytes,
+                 'operations': ops}
         if key in ON_PATH:
             require(entry['launches'] > 0, '%s never launched' % name)
             on_path.append(entry)
         else:
             off_path.append(entry)
-        log('i. %s: kernel %.4f ms, twin %.4f ms (on the card); launches '
-            'by path %s' % (name, ms, plain_ms, json.dumps(by_path)))
+        log('i. %s: kernel %.4f ms, twin %.4f ms, bound %.4f ms (%s), '
+            'library %s ms (on the card); launches by path %s'
+            % (name, ms, plain_ms, entry['bound_ms'], entry['bound_by'],
+               'n/a' if library_ms is None else '%.4f' % library_ms,
+               json.dumps(by_path)))
     return on_path, off_path
 
 
@@ -742,31 +1046,53 @@ def main():
     log('b. built (or reused) %s in %.1f s; ptxas: %s'
         % (path.name, build_s, json.dumps(resources)))
     _build.library()
+    # The host codec's C++ runtime builds at first use: before any timing.
+    t0 = time.perf_counter()
+    require(native.available(), 'the native host library did not build')
+    native_s = time.perf_counter() - t0
+    log('b. built (or reused) %s in %.1f s'
+        % (native.library_path().name, native_s))
 
     workdir = Path(tempfile.mkdtemp(prefix='mtscomp_smoke_'))
     try:
         recs = {name: Recording(workdir, name) for name in RECORDINGS}
         calls, staged = check_kernels(recs)
+        encoded = check_encode_kernel(recs)
+        enc, x, args, err = encoded['spiky_int16_385ch']
+        calls['rans_encode_groups (K6)'] = (
+            renc.encode_groups, renc.encode_groups_ref, args, {}, err)
         for name in set(RECORDINGS) - set(staged):
-            recs[name].staged()[0].close()        # checks its layout
+            if recs[name].expect is not None:
+                recs[name].staged()[0].close()    # checks its layout
         check_small_geometries(workdir)
         end_to_end, counts_by_path = drive_paths(recs)
         check_audit(staged)
+        compress_s, encode_counts = drive_encode_paths(recs)
+        counts_by_path.update(encode_counts)
         stagings = time_staged(recs, staged)
         del staged
+        staged_encode = time_encode(encoded)
+        del encoded, enc, x
         layers = {name: stage_breakdown(recs[name])
                   for name in ('int16_385ch', 'spiky_int16_385ch')}
+        enc_layers = {name: encode_layers(recs[name])
+                      for name in ('int16_385ch', 'spiky_int16_385ch')}
         kernels, off_path = time_kernels(calls, counts_by_path)
         del calls
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     require('jax' not in sys.modules, 'the port loaded JAX')
+    require(not any(m.split('.')[0] == 'mtscomp_tpu' for m in sys.modules),
+            'the port loaded the JAX package')
     # The summary sits next to the last line, so that a log that keeps
     # only the end of the output still holds every number.
-    log(json.dumps(rounded({'build_s': build_s, 'ptxas': resources,
+    log(json.dumps(rounded({'build_s': build_s, 'native_build_s': native_s,
+                            'ptxas': resources,
                             'end_to_end': end_to_end, 'staged': stagings,
-                            'layers_s': layers,
+                            'layers_s': layers, 'compress_s': compress_s,
+                            'staged_encode': staged_encode,
+                            'encode_layers_s': enc_layers,
                             'held_against_twin_only': off_path})))
     log(json.dumps({'kernels': kernels}))
     log(card)

@@ -113,8 +113,11 @@ def _declare(lib):
     lib.mts_scan_transposed.argtypes = [
         i, p, ll, ll, p, p, i, i, i, i, i, p]
     lib.mts_cumsum_time.argtypes = [i, p, p, i, i, i, i, p]
+    lib.mts_rans_encode_groups.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
+                                           ll]
     for fn in (lib.mts_rans_decode_groups, lib.mts_finalize_u8,
-               lib.mts_scan_transposed, lib.mts_cumsum_time):
+               lib.mts_scan_transposed, lib.mts_cumsum_time,
+               lib.mts_rans_encode_groups):
         fn.restype = i
     lib.mts_cuda_error_string.argtypes = [i]
     lib.mts_cuda_error_string.restype = ctypes.c_char_p

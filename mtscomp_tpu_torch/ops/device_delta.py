@@ -1,5 +1,6 @@
-"""The decode's time and channel integration, the port's counterpart of
-``mtscomp_tpu/ops/device_delta.py``.
+"""The delta transform on the device, the port's counterpart of
+``mtscomp_tpu/ops/device_delta.py``: the encode's diffs and zigzag, and
+the decode's time and channel integration.
 
 Kernels (each entry point launches its CUDA kernel for CUDA tensors and
 runs its plain PyTorch twin, ``*_ref``, for CPU tensors; nothing else
@@ -18,12 +19,16 @@ selects between them):
 Unlike the TPU kernels, every output is written at its final shape: no
 128-multiple padding of time or channels to trim afterwards.
 
-Plain ops (XLA ops in the JAX package, plain torch here):
+Plain ops (XLA ops in the JAX package, plain torch here): the encode's
+``diff_time``, ``diff_space`` and ``zigzag_encode`` and the decode's
 ``zigzag_decode``, ``cumsum_space`` and ``cumsum_time_ref`` (the
-counterparts of ``zigzag_decode_jnp``, ``cumsum_space_jnp`` and
+counterparts of ``diff_time_jnp``, ``diff_space_jnp``,
+``zigzag_encode_jnp``, ``zigzag_decode_jnp``, ``cumsum_space_jnp`` and
 ``cumsum_time_jnp``). torch has almost no uint16/uint32 arithmetic, so
-they take the codes as same-width integer bits (uint8, int16, int32)
-and compute in int32/int64.
+they take the values as same-width integer bits (uint8, int8, int16,
+int32). The encode's ops compute in the element's width, where torch's
+integer arithmetic wraps; the decode's widen to int64 where a sum
+could leave it.
 """
 
 import torch
@@ -181,6 +186,32 @@ def _finalize_ref(planes, tail, head, hi, T):
 
 
 # --- plain ops ----------------------------------------------------------
+
+def diff_time(x):
+    """Batched time diff of (B, T, C) integers, row 0 kept, wrapping in
+    the element's width (the JAX package's ``diff_time_jnp``)."""
+    return torch.cat([x[:, :1], x[:, 1:] - x[:, :-1]], dim=1)
+
+
+def diff_space(x):
+    """Batched channel diff of (B, T, C) integers, column 0 kept,
+    wrapping in the element's width (``diff_space_jnp``)."""
+    return torch.cat([x[:, :, :1], x[:, :, 1:] - x[:, :, :-1]], dim=2)
+
+
+#: The signed dtype of each integer width (the zigzag's arithmetic shift).
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def zigzag_encode(v):
+    """Zigzag of integers held as uint8, int8, int16 or int32 bits ->
+    the codes' bits in the same dtype: ``(s << 1) ^ (s >> (bits - 1))``
+    on the signed view ``s`` of the same width, as
+    ``zigzag_encode_jnp`` (wrapped diffs of unsigned data are small in
+    the signed sense)."""
+    s = v.view(_SIGNED[v.element_size()])
+    return ((s + s) ^ (s >> (8 * v.element_size() - 1))).view(v.dtype)
+
 
 def wrap_to(v, dtype):
     """int64 ``v`` modulo 2^bits as ``dtype`` (uint8, int8, int16, int32):

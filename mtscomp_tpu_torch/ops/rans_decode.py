@@ -12,7 +12,7 @@ twins for CPU tensors; nothing else selects between them:
   off the 8-slot grid), with one or two fixups.
 
 Both are bit-identical to the normative coder
-``mtscomp_tpu/models/rans.py::rans_decode_group`` on every live symbol
+``models/rans.py::rans_decode_group`` on every live symbol
 (step * 128 + lane below the row's count) and on the words consumed.
 
 torch has almost no uint32/uint16 arithmetic, so the uint32 states and
@@ -22,7 +22,7 @@ kernel reads them as unsigned, and the twins widen to int64 and mask.
 
 import torch
 
-from mtscomp_tpu.models.rans import GROUP_ROWS, LANES, SCALE_BITS
+from ..models.rans import GROUP_ROWS, LANES, SCALE_BITS
 
 from . import _build
 

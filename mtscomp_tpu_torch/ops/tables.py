@@ -9,7 +9,7 @@ two against each other for every table of real containers).
 
 import numpy as np
 
-from mtscomp_tpu.models.rans import GROUP_ROWS, SCALE_BITS
+from ..models.rans import GROUP_ROWS, SCALE_BITS
 
 
 #: Slack word rows after each group's stream: what one step of a 32-row

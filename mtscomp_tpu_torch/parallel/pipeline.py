@@ -1,5 +1,7 @@
-"""Batched GPU decode: the decode half of ``mtscomp_tpu/parallel/pipeline.py``
+"""Batched GPU decode and encode: ``mtscomp_tpu/parallel/pipeline.py``
 ported to PyTorch.
+
+Decode.
 
 A batch of B chunk containers is parsed on the host, staged as tensors
 (:meth:`DeviceBatchDecoder.pack`, the same arrays as the JAX package's
@@ -31,33 +33,58 @@ Chunks the JAX package also leaves to the host (``supported()`` False
 even alone: 8-byte dtypes, a non-native byte order, a head that is not
 one full row) decode on the host codec, and the module counts them
 (``host_fallback_chunks``).
+
+Encode (:class:`DeviceBatchEncoder`, the Writer's route for ans files):
+a batch of equal-shape chunks is uploaded once; diffs, zigzag, the
+F-order transpose, the byte planes and their histograms run in plain
+torch (``_build_transform_fn``); the plane decisions and segment tables
+are made on the host by the codec's own ``decide_plane``; the coded
+planes are gathered into (N, 32, S*128) segment rows; K6 (grouped rANS
+encode, ``ops/rans_encode.py``) writes each group's states and
+right-anchored word stream; the streams are left-aligned and fetched
+once, and the containers assembled on the host, byte-identical to the
+host codec's. Chunks the device route leaves to the host codec (a dtype
+``supported()`` declines, runt sub-batches, layouts ``encode_batch``
+declines) are counted (``host_encoded_chunks``).
 """
 
 import dataclasses
 import functools
+import struct
+import time
 
 import numpy as np
 import torch
 
-from mtscomp_tpu.codec.ans import (MODE_CONST, MODE_RANS, MODE_RAW, peek_desc,
-                                   segment_counts)
-from mtscomp_tpu.codec.ans import seg_freqs as ans_seg_freqs
-from mtscomp_tpu.io_host import pread_exact
-from mtscomp_tpu.models.rans import GROUP_ROWS, LANES, RANS_L
-from mtscomp_tpu.utils.misc import logger
-
+from ..codec import ans as ans_mod
+from ..codec.ans import (MODE_CONST, MODE_RANS, MODE_RAW, peek_desc,
+                         segment_counts)
+from ..codec.ans import seg_freqs as ans_seg_freqs
 from ..device import resolve_device
+from ..io_host import pread_exact
+from ..models import rans
+from ..models.rans import GROUP_ROWS, LANES, RANS_L
 from ..ops.device_delta import (cumsum_space, cumsum_time,
                                 cumsum_time_transposed,
                                 cumsum_time_transposed_u8,
                                 cumsum_time_transposed_u8_tail,
-                                zigzag_decode)
+                                diff_space, diff_time, zigzag_decode,
+                                zigzag_encode)
+from ..ops.device_hist import histogram256
 from ..ops.rans_decode import decode_groups, decode_groups_coarse
+from ..ops.rans_encode import (encode_groups, left_align,
+                               pack_encoder_tables, symbol_capacity)
 from ..ops.tables import WINDOW_ROWS, pack_device_tables
+from ..utils.misc import logger
 
 #: Chunks decoded on the host codec because ``supported()`` declined
 #: their batch (the codec's documented semantics, as in the JAX package).
 host_fallback_chunks = 0
+
+#: Chunks the Writer's device route encoded on the host codec (the same
+#: bytes): batches ``DeviceBatchEncoder.supported()`` declines, runt
+#: sub-batches and layouts ``encode_batch`` declines.
+host_encoded_chunks = 0
 
 #: Tensor dtype holding a coding dtype's bits, by item size.
 _BITS = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.int16),
@@ -586,22 +613,6 @@ def _read_payload(reader, idx):
     return pread_exact(reader.cdata, length, start)
 
 
-def _peek_desc(reader, idx):
-    """``(transform, tail_split)`` from chunk ``idx``'s 20-byte header.
-
-    ``peek_desc`` returns the bit6 sub-row count unchecked; a value the
-    full parse would reject is rejected here too, before it can shape
-    the run grouping.
-    """
-    start = reader.chunk_offsets[idx]
-    length = min(20, reader.chunk_offsets[idx + 1] - start)
-    transform, tsplit = peek_desc(pread_exact(reader.cdata, length, start))
-    if tsplit != 1 and not 2 <= tsplit <= 256:
-        raise IOError("Compressed chunk #%d: ANS tail_split %d out of "
-                      "range." % (idx, tsplit))
-    return transform, tsplit
-
-
 def _uniform_batches(reader, chunk_ids, n_samples, dec):
     """Cut a run into batches of consecutive chunks that ``supported()``
     accepts together: ``[(chunk ids, parsed chunks), ...]``."""
@@ -630,12 +641,18 @@ def _decode_runs(reader, first_chunk, last_chunk, device):
     ``supported()`` sends to the host codec.
     """
     global host_fallback_chunks
-    bounds = reader.chunk_bounds
+    bounds, offsets = reader.chunk_bounds, reader.chunk_offsets
     ans = reader.algorithm == 'ans'
     runs = []
     for idx in range(first_chunk, last_chunk + 1):
-        key = (bounds[idx + 1] - bounds[idx],
-               _peek_desc(reader, idx) if ans else None)
+        desc = None
+        if ans:
+            # The 20-byte header: peek_desc raises on a bit6 sub-row
+            # count the full parse would reject.
+            desc = peek_desc(pread_exact(
+                reader.cdata, min(20, offsets[idx + 1] - offsets[idx]),
+                offsets[idx]))
+        key = (bounds[idx + 1] - bounds[idx], desc)
         if runs and runs[-1][1] == key:
             runs[-1][0].append(idx)
         else:
@@ -716,3 +733,367 @@ def decompress_to_tensor(reader, first_chunk=0, last_chunk=None,
                               device=device)
         out[pos:pos + block.shape[0]].copy_(block)
     return out
+
+
+# --- encode ---------------------------------------------------------------
+
+def _build_transform_fn(B, T, C, dtype_str, order, do_time_diff,
+                        do_spatial_diff, split_head, diff_order=1):
+    """Device transform stage: diff -> zigzag -> byte planes + histograms.
+
+    Returns ``transform(chunks)`` for a (B, T, C) tensor holding the
+    coding dtype's bits (``_BITS``), giving ``(planes (B, P, n) uint8,
+    hists (B, P, 256) int64, head (B, C) or None)``: the coded elements'
+    little-endian byte planes in ``order`` (F: channel-major), each
+    plane's byte histogram, and the verbatim first row when
+    ``split_head``. The JAX package's jitted function of the same name,
+    as eager torch ops.
+    """
+    P = np.dtype(dtype_str).itemsize
+
+    def transform(chunks):
+        d = chunks
+        if do_time_diff:
+            for _ in range(diff_order):
+                d = diff_time(d)
+        if do_spatial_diff:
+            d = diff_space(d)
+        coded = d[:, 1:, :] if split_head else d
+        z = zigzag_encode(coded)
+        flat = (z.transpose(1, 2) if order == 'F' else z).reshape(B, -1)
+        planes = flat.contiguous().view(torch.uint8).view(
+            B, -1, P).transpose(1, 2).contiguous()
+        hists = histogram256(planes.view(B * P, -1)).view(B, P, 256)
+        head = d[:, 0, :] if split_head else None
+        return planes, hists, head
+
+    return transform
+
+
+# Mixed-mode encode batches split into mode-uniform sub-batches; runs
+# smaller than this take the host codec (byte-identical) instead, as in
+# the JAX package.
+MIN_DEVICE_SUBBATCH = 4
+
+
+def _gather_symbols(planes, rans_planes, segments, *, B, G, C, tcs, tp,
+                    aligned, n_stream, seg, S, tsplit):
+    """(B, P, n) byte planes -> (B*G, 32, S*128) uint8 segment rows: the
+    coded planes' streams (each channel zero-padded to ``tp`` symbols
+    when ``aligned``) cut into the codec's segment list, one row per
+    segment, rows zero-padded to S*128 and groups to 32 rows. The JAX
+    package's ``gather_symbols``."""
+    Pr = len(rans_planes)
+    seg_eff = S * LANES
+    sel = planes[:, rans_planes, :]
+    if aligned:
+        padded = torch.zeros((B, Pr, C, tp), dtype=torch.uint8,
+                             device=planes.device)
+        padded[:, :, :, :tcs] = sel.view(B, Pr, C, tcs)
+        sel = padded.view(B, Pr, n_stream)
+    rows = torch.zeros((B, G * GROUP_ROWS, seg_eff), dtype=torch.uint8,
+                       device=planes.device)
+    n_seg = -(-n_stream // seg)
+    if tsplit == 1:
+        # Uniform rows (no bit6 sub-rows): one copy of the padded planes.
+        full = torch.zeros((B, Pr, n_seg * seg_eff), dtype=torch.uint8,
+                           device=planes.device)
+        full[:, :, :n_stream] = sel
+        rows[:, :Pr * n_seg] = full.view(B, Pr * n_seg, seg_eff)
+    else:
+        # bit6: the ragged tail is M shorter sub-rows, one copy each.
+        for r, (p, start, n) in enumerate(segments):
+            rows[:, r, :n] = sel[:, rans_planes.index(p), start:start + n]
+    return rows.view(B * G, GROUP_ROWS, seg_eff)
+
+
+class DeviceBatchEncoder:
+    """Encode batches of equal-size integer chunks on one device.
+
+    Produces containers byte-identical to the host AnsCodec: the plane
+    decisions are the codec's own ``decide_plane`` on histograms equal
+    to the host codec's bincounts, and K6 is bit-exact against the
+    normative coder. ``writer`` is the port's :class:`~..api.Writer`
+    (its codec, dtype, chunk order and transform settings); ``device``
+    defaults to the writer's.
+    """
+
+    def __init__(self, writer, transform=None, device=None):
+        self.writer = writer
+        self.codec = writer.codec
+        if device is None:
+            device = getattr(writer, 'device', None) or 'cuda'
+        self.device = resolve_device(device)
+        # Bitcast float writers hand the encoder integer views; code in
+        # the coding dtype (float16 -> int16 runs the full device path).
+        self.dtype = np.dtype(getattr(writer, 'code_dtype', writer.dtype))
+        self.order = writer.chunk_order
+        self.do_time_diff = bool(writer.do_time_diff)
+        self.do_spatial_diff = bool(writer.do_spatial_diff)
+        self.diff_order = int(getattr(writer, 'time_diff_order', 1))
+        # Adaptive windows: ``transform=(order, spatial)`` overrides the
+        # writer's global transform for this (window-uniform) batch, and
+        # every produced container gets the bit5 descriptor stamp --
+        # byte-identical to what Writer._compress_chunk's host path
+        # writes for the same chunks.
+        self.stamp = None
+        if transform is not None:
+            t_order, t_spatial = transform
+            self.do_spatial_diff = bool(t_spatial)
+            self.diff_order = t_order if t_order else 1
+            self.do_time_diff = self.do_time_diff and t_order > 0
+            self.stamp = (t_order if writer.do_time_diff else 0,
+                          bool(t_spatial))
+        #: K6's staged inputs of the last batch with a rANS plane:
+        #: ``(symbols, pk, rcp, counts, cap)`` on the device.
+        self.last_kernel_args = None
+        #: Host-clock seconds by layer, accumulated over encode_batch
+        #: calls when set to a dict (each layer ends in a synchronize).
+        self.profile = None
+
+    def supported(self, n_samples):
+        """1- and 2-byte integers in native order, chunks of at least
+        two samples, fewer than 65536 channels (the JAX package's
+        rule)."""
+        return (self.dtype.kind in 'iu' and self.dtype.itemsize <= 2
+                and self.dtype.byteorder in '<=|'
+                and n_samples > 1
+                and self.writer.n_channels < 65536)
+
+    def _mark(self, name, t0):
+        """Close layer ``name`` opened at ``t0``; returns the new time."""
+        if self.profile is None:
+            return t0
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        self.profile[name] = self.profile.get(name, 0.0) + (t1 - t0)
+        return t1
+
+    def _host_encode(self, chunk):
+        """One chunk (host ndarray) through the host codec."""
+        return self.codec.encode(
+            self.writer._transform_chunk(chunk, self.diff_order,
+                                         self.do_spatial_diff),
+            order=self.order, transform=self.stamp)
+
+    def encode_batch(self, chunks):
+        """chunks: (B, T, C) ndarray in the coding dtype, or a tensor on
+        the device holding its bits (``_BITS``) -> list of container
+        payload bytes, or None for a layout the device route leaves to
+        the host codec (segment tables without channel-aligned
+        segments, as in the JAX package)."""
+        global host_encoded_chunks
+        t0 = time.perf_counter()
+        B, T, C = chunks.shape
+        P = self.dtype.itemsize
+        seg = self.codec.seg
+        if torch.is_tensor(chunks):
+            x = chunks
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(chunks).view(
+                _BITS[P][1])).to(self.device)
+        t0 = self._mark('upload', t0)
+        transform = _build_transform_fn(
+            B, T, C, str(self.dtype), self.order, self.do_time_diff,
+            self.do_spatial_diff, True, self.diff_order)
+        planes_d, hists_d, head_d = transform(x)
+        hists = hists_d.cpu().numpy()
+        heads = head_d.cpu().numpy()
+        n_coded = (T - 1) * C
+
+        # Channel-aligned segments (flags bit2): same eligibility rule
+        # and geometry as the host codec (AnsCodec.encode).
+        aligned = (getattr(self.codec, 'channel_aligned', False)
+                   and self.order == 'F' and n_coded > 0)
+        if aligned:
+            k, seg, tp, tcs, n_stream = ans_mod.aligned_geometry(
+                n_coded, C, seg)
+        else:
+            k = tp = tcs = 0
+            n_stream = n_coded
+        n_pad = n_stream - n_coded
+        seg_mode = getattr(self.codec, 'table_mode', 'plane') == 'segment'
+        if seg_mode and not aligned:
+            return None    # host codec handles non-aligned clustering
+
+        # Per-channel histograms for segment-table clustering: the
+        # F-order plane stream is channel-major, so per-segment
+        # histograms are sums of per-channel ones (plus the per-channel
+        # zero pads) -- bit-identical to the host codec's bincounts.
+        ch_hists = None
+        if seg_mode and n_stream > seg:
+            ch_hists = histogram256(planes_d.view(B * P * C, tcs)).view(
+                B, P, C, 256).cpu().numpy()
+        n_segs = -(-n_stream // seg) if aligned else 0
+        t0 = self._mark('transform', t0)
+
+        def _seg_hists(b, p):
+            out = np.empty((n_segs, 256), dtype=np.int64)
+            for s in range(n_segs):
+                a, z = s * k, min((s + 1) * k, C)
+                out[s] = ch_hists[b, p, a:z].sum(axis=0)
+                out[s, 0] += (z - a) * (tp - tcs)
+            return out
+
+        # Host: tables + per-plane modes (uniform across the batch for
+        # one device call; mixed batches split below). The decision
+        # logic is ans_mod.decide_plane -- the SAME code the host codec
+        # runs, so containers stay byte-identical.
+        modes = np.empty((B, P), dtype=np.int64)
+        plane_tables = {}
+        for b in range(B):
+            for p in range(P):
+                seg_fn = ((lambda b=b, p=p: _seg_hists(b, p))
+                          if ch_hists is not None else None)
+                mode, ptables, tidx = ans_mod.decide_plane(
+                    hists[b, p], n_pad, n_stream, n_coded, seg,
+                    'segment' if seg_mode else 'plane', seg_fn)
+                modes[b, p] = mode
+                if mode == MODE_RANS:
+                    plane_tables[(b, p)] = (ptables, tidx)
+        if not (modes == modes[0]).all():
+            # Plane modes are data-dependent per chunk (a quiet chunk
+            # codes its high byte CONST, a busy one rANS): encode each
+            # mode-uniform sub-batch on the device (decide_plane is
+            # deterministic, so each passes the uniformity check on
+            # re-entry); sub-batches below MIN_DEVICE_SUBBATCH chunks go
+            # to the host codec (the same bytes), as in the JAX package.
+            payloads = [None] * B
+            for row in sorted({tuple(m) for m in modes.tolist()}):
+                ids = [b for b in range(B) if tuple(modes[b]) == row]
+                if len(ids) < MIN_DEVICE_SUBBATCH:
+                    host_encoded_chunks += len(ids)
+                    for b in ids:
+                        chunk = (chunks[b] if not torch.is_tensor(chunks)
+                                 else chunks[b].cpu().numpy().view(
+                                     self.dtype))
+                        payloads[b] = self._host_encode(chunk)
+                    continue
+                sub = self.encode_batch(
+                    chunks[torch.tensor(ids, device=chunks.device)]
+                    if torch.is_tensor(chunks)
+                    else np.ascontiguousarray(chunks[ids]))
+                for j, b in enumerate(ids):
+                    payloads[b] = sub[j]
+            return payloads
+        mode_row = [int(m) for m in modes[0]]
+        rans_planes = [p for p, m in enumerate(mode_row) if m == MODE_RANS]
+        raw_planes = [p for p, m in enumerate(mode_row) if m == MODE_RAW]
+
+        # Ragged-tail segment split (flags bit6): identical decision to
+        # the host codec (shared helper).
+        tsplit = ans_mod.tail_split_for(aligned, mode_row, n_stream, seg)
+
+        group_words, group_states, group_counts = [], [], []
+        if rans_planes:
+            segments = segment_counts(n_stream, seg, mode_row,
+                                      tail_split=tsplit)
+            G = -(-len(segments) // GROUP_ROWS)
+            R = GROUP_ROWS
+            S = -(-min(seg, n_stream) // LANES)
+            freq_arr = np.zeros((B * G, R, 256), dtype=np.int64)
+            counts_arr = np.zeros((B * G, R), dtype=np.int32)
+            # Rows past a group's segments are inactive (count 0); any
+            # >= 2-symbol table keeps their lookups in range.
+            freq_arr[:, :, :2] = rans.SCALE // 2
+            for b in range(B):
+                for gi in range(G):
+                    i = b * G + gi
+                    for r, (p, start, n) in enumerate(
+                            segments[gi * R:(gi + 1) * R]):
+                        ptables, tidx = plane_tables[(b, p)]
+                        freq_arr[i, r] = ptables[
+                            0 if tidx is None else tidx[start // seg]]
+                        counts_arr[i, r] = n
+            # Encoder tables once per distinct frequency table.
+            uniq, inv = np.unique(freq_arr.reshape(-1, 256), axis=0,
+                                  return_inverse=True)
+            pk_u, rcp_u = pack_encoder_tables(uniq)
+            pk_arr = pk_u[inv.reshape(-1)].reshape(B * G, R, 256)
+            rcp_arr = rcp_u[inv.reshape(-1)].reshape(B * G, R, 256)
+            cap = symbol_capacity(counts_arr)
+            t0 = self._mark('host_decisions', t0)
+            symbols = _gather_symbols(
+                planes_d, rans_planes, segments, B=B, G=G, C=C, tcs=tcs,
+                tp=tp, aligned=aligned, n_stream=n_stream, seg=seg, S=S,
+                tsplit=tsplit)
+            dev = self.device
+            args = (symbols, torch.from_numpy(pk_arr).to(dev),
+                    torch.from_numpy(rcp_arr).to(dev),
+                    torch.from_numpy(counts_arr).to(dev), cap)
+            self.last_kernel_args = args
+            t0 = self._mark('gather_stage', t0)
+            states_d, words_d, nw_d = encode_groups(*args)
+            t0 = self._mark('k6', t0)
+            flat, n_words = left_align(words_d, nw_d)
+            states = states_d.cpu().numpy().view(np.uint32)
+            t0 = self._mark('align_fetch', t0)
+            offs = np.concatenate([[0], np.cumsum(n_words)])
+            for b in range(B):
+                gw, gs, gc = [], [], []
+                for gi in range(G):
+                    i = b * G + gi
+                    segs = segments[gi * R:(gi + 1) * R]
+                    gw.append(flat[offs[i]:offs[i + 1]])
+                    gs.append(states[i, :len(segs)])
+                    gc.append(int(n_words[i]))
+                group_words.append(gw)
+                group_states.append(gs)
+                group_counts.append(gc)
+        else:
+            t0 = self._mark('host_decisions', t0)
+
+        raw_np = (planes_d[:, raw_planes].cpu().numpy() if raw_planes
+                  else None)
+
+        # Host: assemble containers (identical layout to AnsCodec.encode).
+        payloads = []
+        for b in range(B):
+            multitable = any(plane_tables[(b, p)][1] is not None
+                             for p in rans_planes)
+            flags = (1 | 2 | (4 if aligned else 0)
+                     | (ans_mod.FLAG_MULTITABLE if multitable else 0)
+                     | ans_mod.FLAG_CRC32)
+            tdesc = 0
+            if self.stamp is not None:
+                flags |= ans_mod.FLAG_TRANSFORM
+                tdesc = self.stamp[0] | (4 if self.stamp[1] else 0)
+            if tsplit > 1:
+                flags |= ans_mod.FLAG_TAILSPLIT
+            parts = [ans_mod._HEADER.pack(
+                ans_mod.MAGIC, ans_mod.CONTAINER_VERSION, P,
+                flags, rans.SCALE_BITS, T * C,
+                k if aligned else self.codec.seg_log2,
+                rans.MIN_FREQ, rans.GROUP_ROWS, tdesc, C,
+                tsplit if tsplit > 1 else 0)]
+            parts.append(np.ascontiguousarray(heads[b]).tobytes())
+            for p in range(P):
+                m = mode_row[p]
+                if m == MODE_CONST:
+                    # The constant byte: derive from the histogram.
+                    v = int(np.argmax(hists[b, p]))
+                    parts.append(struct.pack('<BB', m, v))
+                elif m == MODE_RAW:
+                    parts.append(struct.pack('<B', m)
+                                 + raw_np[b, raw_planes.index(p)].tobytes())
+                else:
+                    ptables, tidx = plane_tables[(b, p)]
+                    if multitable:
+                        meta = (struct.pack('<BB', m, ptables.shape[0])
+                                + ptables.astype('<u2').tobytes())
+                        if ptables.shape[0] > 1:
+                            meta += tidx.tobytes()
+                        parts.append(meta)
+                    else:
+                        parts.append(struct.pack('<B', m)
+                                     + ptables[0].astype('<u2').tobytes())
+            if rans_planes:
+                parts.append(struct.pack('<I', len(group_words[b])))
+                parts.append(np.asarray(group_counts[b], '<u4').tobytes())
+                for st, wd in zip(group_states[b], group_words[b]):
+                    parts.append(st.astype('<u4').tobytes())
+                    parts.append(wd.astype('<u2').tobytes())
+            payloads.append(ans_mod._append_crc(parts))
+        self._mark('assembly', t0)
+        return payloads

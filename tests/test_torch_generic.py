@@ -7,7 +7,10 @@ packing and tables from other writers all decode on the port's device
 route. For each such file the port's ``pack`` stages the same arrays as
 the JAX package's, and its ``decode_batch`` returns the same bytes as
 the JAX package's (Pallas in interpret mode) and as the source; the
-reader's entry points decode it with no chunk on the host codec.
+reader's entry points decode it with no chunk on the host codec. The
+files are written by the port's own host codec (the JAX package's
+bytes); the foreign writer's tables come from patching the port's copy
+of the codec.
 """
 
 import numpy as np
@@ -16,13 +19,13 @@ import torch
 
 jax = pytest.importorskip('jax')
 
-import mtscomp_tpu.codec.ans as ans_mod  # noqa: E402
-from mtscomp_tpu import compress, decompress  # noqa: E402
+from mtscomp_tpu import decompress  # noqa: E402
 from mtscomp_tpu.codec.ans import MODE_RANS, MODE_RAW  # noqa: E402
 from mtscomp_tpu.parallel.pipeline import (  # noqa: E402
     DeviceBatchDecoder as JaxDecoder, _read_payload)
 
 import mtscomp_tpu_torch as mt  # noqa: E402
+import mtscomp_tpu_torch.codec.ans as ans_mod  # noqa: E402
 from mtscomp_tpu_torch.parallel import pipeline as tp  # noqa: E402
 
 from conftest import make_signal, to_int16, write_arr  # noqa: E402
@@ -108,10 +111,10 @@ def _file(tmp_path, monkeypatch, name):
     with monkeypatch.context() as m:
         if min_freq is not None:
             m.setattr(ans_mod, '_quantize_rows', foreign_quantizer(min_freq))
-        compress(path, tmp_path / 'g.cbin', tmp_path / 'g.ch',
-                 sample_rate=float(T), n_channels=arr.shape[1],
-                 dtype=arr.dtype, algorithm='ans', quiet=True,
-                 check_after_compress=False, device='none', **opts)
+        mt.compress(path, tmp_path / 'g.cbin', tmp_path / 'g.ch',
+                    sample_rate=float(T), n_channels=arr.shape[1],
+                    dtype=arr.dtype, algorithm='ans', quiet=True,
+                    check_after_compress=False, device='none', **opts)
     return arr, decompress(tmp_path / 'g.cbin', tmp_path / 'g.ch',
                            quiet=True), T
 
@@ -216,10 +219,10 @@ def test_long_word_stream_decodes_through_k1(tmp_path_, monkeypatch):
     T, C = 100000, 64
     arr = np.cumsum(rng.normal(0, 60, size=(T, C)), axis=0).astype(np.int16)
     path = write_arr(tmp_path_ / 'w.bin', arr)
-    compress(path, tmp_path_ / 'w.cbin', tmp_path_ / 'w.ch',
-             sample_rate=float(T), n_channels=C, dtype='int16',
-             algorithm='ans', quiet=True, check_after_compress=False,
-             device='none', **ORDER1)
+    mt.compress(path, tmp_path_ / 'w.cbin', tmp_path_ / 'w.ch',
+                sample_rate=float(T), n_channels=C, dtype='int16',
+                algorithm='ans', quiet=True, check_after_compress=False,
+                device='none', **ORDER1)
     r = decompress(tmp_path_ / 'w.cbin', tmp_path_ / 'w.ch', quiet=True)
     try:
         parsed = _parsed(r, T)

@@ -192,12 +192,11 @@ def test_reader_entry_points(tmp_path_, monkeypatch, name):
         assert np.array_equal(np.fromfile(out, arr.dtype).reshape(arr.shape),
                               arr)
         # Windows stay on the host codec in this slice.
-        assert rp._device_window(0, 10) is None
         assert np.array_equal(rp[5:T + 7, 2:9], arr[5:T + 7, 2:9])
         counts = mt.launch_counts()
         assert counts['host_fallback_chunks'] == 0
         # CPU decodes run the twins: no kernel launch is counted.
-        assert len(counts) == 12
+        assert len(counts) == 14
         assert not any(counts.values())
     finally:
         rp.close()
@@ -226,22 +225,22 @@ def test_unsupported_batch_goes_to_the_host(tmp_path_, monkeypatch):
 
 def test_peek_desc_guards_tail_split(tmp_path_, monkeypatch):
     """A header whose bit6 sub-row count is out of range is rejected
-    before it shapes the run grouping."""
+    before it shapes the run grouping (the port's ``peek_desc`` checks
+    the range the full parse checks)."""
     _arr, r, _T = _file(tmp_path_, 'ragged129', monkeypatch)
     r.close()
-    rp = mt.decompress(tmp_path_ / 'p.cbin', tmp_path_ / 'p.ch',
-                       device='cpu', quiet=True)
-    try:
-        real = tp.peek_desc
-        monkeypatch.setattr(tp, 'peek_desc', lambda b: (real(b)[0], 1))
-        assert tp._peek_desc(rp, 0) == (None, 1)
-        for bad in (0, 257, 1000):
-            monkeypatch.setattr(tp, 'peek_desc',
-                                lambda b, v=bad: (real(b)[0], v))
+    cbin = tmp_path_ / 'p.cbin'
+    good = cbin.read_bytes()
+    assert good[6] & 64 and good[18:20] == (8).to_bytes(2, 'little')
+    for bad in (0, 257, 1000):
+        cbin.write_bytes(good[:18] + bad.to_bytes(2, 'little') + good[20:])
+        rp = mt.decompress(cbin, tmp_path_ / 'p.ch', device='cpu',
+                           quiet=True)
+        try:
             with pytest.raises(IOError, match='tail_split'):
                 rp.to_array()
-    finally:
-        rp.close()
+        finally:
+            rp.close()
 
 
 def test_cuda_device_raises_without_a_gpu(tmp_path_, monkeypatch):
@@ -259,28 +258,31 @@ def test_cuda_device_raises_without_a_gpu(tmp_path_, monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path_):
-    """Importing the port and decoding with it loads no JAX (this test
-    process has JAX loaded already, so it runs in a fresh one)."""
+    """Compressing and decoding with the port loads neither JAX nor any
+    module of the JAX package (this test process has both loaded
+    already, so it runs in a fresh one)."""
     script = textwrap.dedent("""
         import sys
         import numpy as np
         import mtscomp_tpu_torch as mt
-        from mtscomp_tpu import compress
         d = sys.argv[1]
         rng = np.random.default_rng(1)
         arr = np.cumsum(rng.normal(0, 5, size=(2000, 129)),
                         axis=0).astype(np.int16)
         arr.tofile(d + '/s.bin')
-        compress(d + '/s.bin', d + '/s.cbin', d + '/s.ch',
-                 sample_rate=1000.0, n_channels=129, dtype='int16',
-                 algorithm='ans', quiet=True, device='none',
-                 ans_seg_log2=12, check_after_compress=False)
+        mt.compress(d + '/s.bin', d + '/s.cbin', d + '/s.ch',
+                    sample_rate=1000.0, n_channels=129, dtype='int16',
+                    algorithm='ans', quiet=True, device='cpu',
+                    ans_seg_log2=12, check_after_compress=False)
+        assert mt.launch_counts()['host_encoded_chunks'] == 0
         r = mt.decompress(d + '/s.cbin', d + '/s.ch', device='cpu',
                           quiet=True)
         assert np.array_equal(r.to_array(), arr)
         assert mt.launch_counts()['host_fallback_chunks'] == 0
         r.close()
-        assert 'jax' not in sys.modules, 'jax was imported'
+        bad = [m for m in sys.modules
+               if m.split('.')[0] in ('jax', 'mtscomp_tpu')]
+        assert not bad, 'loaded %s' % bad
         print('OK')
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -9,8 +9,9 @@ Run from the repository root, on a machine with an NVIDIA Hopper GPU,
 Phases (any failure raises and exits non-zero):
 
 a. print the card's name and power limit (``nvidia-smi``);
-b. build the port's CUDA kernels from ``mtscomp_tpu_torch/csrc`` and
-   its C++ host runtime from ``mtscomp_tpu_torch/native``;
+b. build the port's CUDA kernels from ``mtscomp_tpu_torch/csrc`` (ptxas
+   registers, and K1's and K6's dynamic shared memory a block) and its
+   C++ host runtime from ``mtscomp_tpu_torch/native``;
 d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks) and
    compress them with the port's own host codec (``device='none'``,
    ans v2):
@@ -29,8 +30,13 @@ d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks) and
      windows of 4 chunks (walk, then a slow oscillation);
 c. hold every kernel form against its plain PyTorch twin on the card,
    at the shapes the decode of those files gives it (byte equality),
-   K6 on the encode's B=8 batches of both 32-s files, and decode the
-   CPU tests' small geometries on the card;
+   K6 on the encode's B=8 batches of both 32-s files; run K1's three
+   forms and K6 on the edge cases (``EDGE_CASES`` x ``REGION_ENDS``:
+   1 step and K6's window counts around 16, steps reading close to 4096
+   words, rows of count 0 and ragged counts, a word region ending at the
+   stream's last word or off the 8-word grid) against their twins and
+   the normative coder; and decode the CPU tests' small geometries on
+   the card;
 e-g. decode path by path, with every launch count set to 0 just before
    and read just after: decode each file through
    ``mtscomp_tpu_torch.decompress(..., device='cuda')`` with
@@ -48,7 +54,8 @@ k. encode path by path (the two 32-s files, then the branch files),
    ``supported()`` declines it, and all its chunks must go there), and
    decode each device-encoded file through the port to its source;
 i. time the staged decodes (the batch staged on the card once, CUDA
-   events, median of repeats), K6 and the device encode staged at B=8
+   events, median of repeats) and K1 alone on the whole-file batch
+   (B=32, 128 groups), K6 and the device encode staged at B=8
    (checked against the host codec first), ``compress()`` of the 32-s
    files on both routes and by layer, and each kernel form against its
    twin, its bound and, where one PyTorch call computes the same
@@ -77,11 +84,13 @@ import torch
 import mtscomp_tpu_torch as mt
 import mtscomp_tpu_torch.codec.ans as ans_codec
 from mtscomp_tpu_torch import native
-from mtscomp_tpu_torch.models.rans import LANES
+from mtscomp_tpu_torch.models import rans
+from mtscomp_tpu_torch.models.rans import GROUP_ROWS, LANES
 from mtscomp_tpu_torch.ops import _build
 from mtscomp_tpu_torch.ops import device_delta as dd
 from mtscomp_tpu_torch.ops import rans_decode as rd
 from mtscomp_tpu_torch.ops import rans_encode as renc
+from mtscomp_tpu_torch.ops.tables import pack_device_tables
 from mtscomp_tpu_torch.parallel.pipeline import (
     DeviceBatchDecoder, DeviceBatchEncoder, _decode_fuse8, _read_payload,
     check_words_used, fuse8_planes, generic_elems)
@@ -161,6 +170,27 @@ PTXAS_NAMES = (('rans_decode_groups_kernelILi0E', 'K1 octet'),
                ('rans_encode_groups_kernel', 'K6'))
 
 ORDER1 = {'time_diff_order': 1, 'do_spatial_diff': False}
+
+#: K6's steps a window (``kWindow`` in csrc/rans_encode.cu).
+ENC_WINDOW = 16
+#: Edge cases of K1 and K6 (phase c on the card, the port's CPU tests on
+#: the twins): name -> (steps, tables). 'skewed' rows draw from their own
+#: random tables, with rows of count 0 and ragged counts; 'uniform' rows
+#: from flat 256-symbol tables (8 bits a symbol: in step, the lanes read
+#: close to 4096 words every other step, across K1's ring slots), one
+#: skewed row shifting the step totals off the slot grid and one ragged
+#: row.
+EDGE_CASES = {
+    'one_step': (1, 'skewed'),
+    'window_less_one': (ENC_WINDOW - 1, 'skewed'),
+    'one_window': (ENC_WINDOW, 'skewed'),
+    'window_and_one': (ENC_WINDOW + 1, 'skewed'),
+    'two_windows_and_three': (2 * ENC_WINDOW + 3, 'skewed'),
+    'eight_bit_symbols': (2 * ENC_WINDOW + 3, 'uniform'),
+}
+#: Where a group's word region ends (K1's W, K6's cap): at the largest
+#: stream's last word, or one past it off the 8-word grid.
+REGION_ENDS = ('exact', 'off_grid')
 
 #: Recordings: name -> (signal, seconds, channels, dtype, seed, compress
 #: options, foreign writer's minimum frequency or None, expected
@@ -349,6 +379,87 @@ def foreign_quantizer(min_freq):
 
     return lambda sums: np.stack([quantize(r) for r in np.asarray(sums)]
                                  ).astype(np.uint16)
+
+
+def edge_groups(name, n_groups=2):
+    """The seeded symbol rows of one of ``EDGE_CASES``: ``(rows, freqs,
+    counts, steps)``, ``rows[n][r]`` row r of group n (uint8), ``freqs``
+    (N, 32, 256) this writer's 8-aligned tables, ``counts`` (N, 32)
+    int32. The port's CPU tests import it from here."""
+    steps, kind = EDGE_CASES[name]
+    rng = np.random.default_rng(100 + list(EDGE_CASES).index(name))
+    full = steps * LANES
+    freqs = np.zeros((n_groups, GROUP_ROWS, 256), np.int64)
+    counts = np.zeros((n_groups, GROUP_ROWS), np.int32)
+    rows = []
+    for n in range(n_groups):
+        if kind == 'uniform':
+            c = np.full(GROUP_ROWS, full)
+            c[12] = full - 77
+        else:
+            c = rng.integers(0, full + 1, size=GROUP_ROWS)
+            c[rng.choice(np.arange(1, GROUP_ROWS), 4, replace=False)] = 0
+            c[0] = full
+        group = []
+        for r in range(GROUP_ROWS):
+            if kind == 'uniform' and r != 7:
+                f = np.full(256, 16)
+            else:
+                hist = np.zeros(256, np.int64)
+                k = int(rng.integers(2, 40))
+                hist[rng.choice(256, k, replace=False)] = rng.geometric(
+                    0.05, size=k)
+                f = rans.quantize_freqs(hist)
+            freqs[n, r] = f
+            group.append(rng.choice(256, size=int(c[r]),
+                                    p=f / f.sum()).astype(np.uint8))
+        counts[n] = c
+        rows.append(group)
+    return rows, freqs, counts, steps
+
+
+def region_width(n_words, region_end):
+    """K1's W or K6's cap for streams of ``n_words`` words: the largest
+    one's length ('exact') or one past it, off the 8-word grid."""
+    w = max(max(n_words), 1)
+    if region_end == 'off_grid':
+        w += 2 if (w + 1) % 8 == 0 else 1
+    return w
+
+
+def edge_k1_inputs(rows, freqs, counts, streams, region_end):
+    """K1's inputs for encoded edge groups (``streams`` (states, words)
+    of each group from a normative ``rans_encode_group``), as CPU
+    tensors: (states, words, octet_pk, coarse_pk, dense_pk, counts)."""
+    N = len(rows)
+    W = region_width([w.size for _s, w in streams], region_end)
+    states = np.full((N, GROUP_ROWS, LANES), rans.RANS_L, np.uint32)
+    words = np.zeros((N, W), np.uint16)
+    octet = np.zeros((N, GROUP_ROWS, LANES), np.int32)
+    coarse = np.zeros((N, GROUP_ROWS, 256), np.int32)
+    dense = np.zeros((N, GROUP_ROWS, 256), np.int32)
+    for n, (st, w) in enumerate(streams):
+        states[n] = st
+        words[n, :w.size] = w
+        for r in range(GROUP_ROWS):
+            c, d, _two, o = pack_device_tables(freqs[n, r])
+            coarse[n, r], dense[n, r], octet[n, r] = (c.reshape(-1),
+                                                      d.reshape(-1), o)
+    return tuple(torch.from_numpy(a) for a in (
+        states.view(np.int32), words.view(np.int16), octet, coarse, dense,
+        counts))
+
+
+def edge_k6_inputs(rows, freqs, counts, steps, n_words, region_end):
+    """K6's inputs for edge groups whose streams have ``n_words`` words,
+    as CPU tensors: (symbols, pk, rcp, counts) and the region ``cap``."""
+    symbols = np.zeros((len(rows), GROUP_ROWS, steps * LANES), np.uint8)
+    for n, group in enumerate(rows):
+        for r, row in enumerate(group):
+            symbols[n, r, :row.size] = row
+    pk, rcp = renc.pack_encoder_tables(freqs)
+    return (tuple(torch.from_numpy(a) for a in (symbols, pk, rcp, counts)),
+            region_width(n_words, region_end))
 
 
 def to_dtype(walk, dtype):
@@ -656,6 +767,54 @@ def check_kernels(recs):
     return calls, staged
 
 
+def check_edge_cases():
+    """Phase c, edge cases: every one of ``EDGE_CASES`` x ``REGION_ENDS``
+    through K1 (all three forms) and K6 on the card, each held against
+    its twin (byte equality) and against the normative coder (K1 decodes
+    the normative encoder's streams to the source rows and reads every
+    word; K6 gives its states, counts and streams)."""
+    forms = (('octet', rd.decode_groups, rd.decode_groups_ref, 2, {}),
+             ('coarse, one fixup', rd.decode_groups_coarse,
+              rd.decode_groups_coarse_ref, 3, {'one_fixup': True}),
+             ('coarse, two fixups', rd.decode_groups_coarse,
+              rd.decode_groups_coarse_ref, 3, {'one_fixup': False}))
+    for case in EDGE_CASES:
+        rows, freqs, counts, steps = edge_groups(case)
+        streams = [rans.rans_encode_group(g, freqs[n])
+                   for n, g in enumerate(rows)]
+        n_words = [w.size for _st, w in streams]
+        for end in REGION_ENDS:
+            k1_in = [t.to(DEVICE) for t in
+                     edge_k1_inputs(rows, freqs, counts, streams, end)]
+            live = (torch.arange(steps * LANES, device=k1_in[0].device)
+                    < k1_in[5][:, :, None].long())
+            for form, kernel, twin, table, kw in forms:
+                args = (k1_in[0], k1_in[1], k1_in[table], k1_in[4],
+                        k1_in[5], steps)
+                _err, (syms, used) = compare(kernel, twin, args, kw, live)
+                syms = syms.cpu().numpy()
+                require(used.tolist() == n_words and all(
+                    np.array_equal(syms[n, r, :row.size], row)
+                    for n, group in enumerate(rows)
+                    for r, row in enumerate(group)),
+                    'edge case %s (%s): K1 %s differs from the normative '
+                    'coder' % (case, end, form))
+            k6_in, cap = edge_k6_inputs(rows, freqs, counts, steps, n_words,
+                                        end)
+            _err, (states, words, nw) = k6_compare(
+                tuple(t.to(DEVICE) for t in k6_in) + (cap,))
+            states, words = states.cpu().numpy(), words.cpu().numpy()
+            require(nw.tolist() == n_words and all(
+                np.array_equal(states[n].view(np.uint32), st)
+                and np.array_equal(words[n, cap - w.size:].view(np.uint16), w)
+                for n, (st, w) in enumerate(streams)),
+                'edge case %s (%s): K6 differs from the normative coder'
+                % (case, end))
+        log('c. edge case %s: %d steps, %s words, regions %s: K1 (octet, '
+            'one and two fixups) and K6 equal their twins and the normative '
+            'coder' % (case, steps, n_words, REGION_ENDS))
+
+
 def k6_compare(args):
     """K6 and its twin on the same staged inputs: (max_abs_err over the
     states, the word counts and each group's stream, kernel outputs)."""
@@ -929,6 +1088,19 @@ def time_staged(recs, staged):
             stagings[name + '_all'] = {
                 'batch_chunks': len(parsed), 'ms': ms,
                 'gbps': len(parsed) * SR * 385 * 2 / 1e6 / ms}
+            if name == 'int16_385ch':
+                # K1 alone on the whole-file batch to_array() runs.
+                k1_name, kernel, twin, k1_args, kw = k1_calls(fn, args)
+                live = (torch.arange(k1_args[-1] * LANES,
+                                     device=args[4].device)
+                        < args[4][:, :, None].long())
+                compare(kernel, twin, k1_args, kw, live)
+                stagings[name + '_all']['k1_groups'] = args[0].shape[0]
+                stagings[name + '_all']['k1_ms'] = cuda_ms(
+                    lambda: kernel(*k1_args, **kw), REPS)
+                log('i. %s on the whole-file batch (%d groups): %.4f ms, '
+                    'equal to its twin' % (k1_name, args[0].shape[0],
+                                           stagings[name + '_all']['k1_ms']))
         finally:
             r.close()
     for name, st in stagings.items():
@@ -1045,7 +1217,11 @@ def main():
     resources = ptxas_resources(ptxas)
     log('b. built (or reused) %s in %.1f s; ptxas: %s'
         % (path.name, build_s, json.dumps(resources)))
-    _build.library()
+    lib = _build.library()
+    smem = {form: lib.mts_rans_decode_smem_bytes(fixups) for fixups, form in
+            enumerate(('K1 octet', 'K1 coarse 1', 'K1 coarse 2'))}
+    smem['K6'] = lib.mts_rans_encode_smem_bytes()
+    log('b. dynamic shared memory a block (bytes): %s' % json.dumps(smem))
     # The host codec's C++ runtime builds at first use: before any timing.
     t0 = time.perf_counter()
     require(native.available(), 'the native host library did not build')
@@ -1057,6 +1233,7 @@ def main():
     try:
         recs = {name: Recording(workdir, name) for name in RECORDINGS}
         calls, staged = check_kernels(recs)
+        check_edge_cases()
         encoded = check_encode_kernel(recs)
         enc, x, args, err = encoded['spiky_int16_385ch']
         calls['rans_encode_groups (K6)'] = (
@@ -1088,7 +1265,7 @@ def main():
     # The summary sits next to the last line, so that a log that keeps
     # only the end of the output still holds every number.
     log(json.dumps(rounded({'build_s': build_s, 'native_build_s': native_s,
-                            'ptxas': resources,
+                            'ptxas': resources, 'dynamic_smem': smem,
                             'end_to_end': end_to_end, 'staged': stagings,
                             'layers_s': layers, 'compress_s': compress_s,
                             'staged_encode': staged_encode,

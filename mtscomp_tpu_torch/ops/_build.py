@@ -119,6 +119,10 @@ def _declare(lib):
                lib.mts_scan_transposed, lib.mts_cumsum_time,
                lib.mts_rans_encode_groups):
         fn.restype = i
+    lib.mts_rans_decode_smem_bytes.argtypes = [i]
+    lib.mts_rans_decode_smem_bytes.restype = i
+    lib.mts_rans_encode_smem_bytes.argtypes = []
+    lib.mts_rans_encode_smem_bytes.restype = i
     lib.mts_cuda_error_string.argtypes = [i]
     lib.mts_cuda_error_string.restype = ctypes.c_char_p
 

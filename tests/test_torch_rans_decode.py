@@ -7,6 +7,8 @@ packed from real containers. The re-housed table packer is held against
 the JAX package's for every table those containers carry.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -22,10 +24,12 @@ from mtscomp_tpu.parallel.pipeline import (  # noqa: E402
 
 from mtscomp_tpu_torch.ops import tables  # noqa: E402
 from mtscomp_tpu_torch.ops.rans_decode import (  # noqa: E402
-    decode_groups, decode_groups_ref)
+    decode_groups, decode_groups_coarse, decode_groups_ref)
 from mtscomp_tpu_torch.parallel.pipeline import (  # noqa: E402
     DeviceBatchDecoder, args_from_jax_pack)
 
+from chip_smoke import (  # noqa: E402
+    EDGE_CASES, REGION_ENDS, edge_groups, edge_k1_inputs)
 from conftest import write_arr  # noqa: E402
 
 # name: (channels, samples per chunk, chunks, dtype, compress kwargs).
@@ -235,3 +239,49 @@ def test_args_from_jax_pack_dtypes(tmp_path_, monkeypatch):
             np.asarray(jargs[1]).reshape(args[1].shape))
     finally:
         r.close()
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_streams(case):
+    """An edge case's groups, encoded by the normative coder, and each
+    group's rows as the normative decoder returns them."""
+    rows, freqs, counts, steps = edge_groups(case)
+    streams = [rans.rans_encode_group(g, freqs[n]) for n, g in
+               enumerate(rows)]
+    decoded = []
+    for n, (st, w) in enumerate(streams):
+        got, n_used = rans.rans_decode_group(st, w, freqs[n], counts[n])
+        assert n_used == w.size
+        assert all(np.array_equal(a, b) for a, b in zip(got, rows[n]))
+        decoded.append(got)
+    return rows, freqs, counts, steps, streams, decoded
+
+
+@pytest.mark.parametrize('form', ['octet', 'coarse_1fixup', 'coarse_2fixups'])
+@pytest.mark.parametrize('region_end', REGION_ENDS)
+@pytest.mark.parametrize('case', sorted(EDGE_CASES))
+def test_decode_twins_edge_cases(case, region_end, form):
+    """The twins K1 is held to on the card, on the inputs its design
+    makes risky: steps that read close to 4096 words, 1 step and the
+    encoder's window counts around 16, rows of count 0 and ragged
+    counts, a region ending at the stream's last word or off the 8-word
+    grid; each against the normative decoder."""
+    rows, freqs, counts, steps, streams, decoded = _edge_streams(case)
+    states, words, octet, coarse, dense, counts_t = edge_k1_inputs(
+        rows, freqs, counts, streams, region_end)
+    if form == 'octet':
+        syms, used = decode_groups(states, words, octet, dense, counts_t,
+                                   steps)
+    else:
+        syms, used = decode_groups_coarse(states, words, coarse, dense,
+                                          counts_t, steps,
+                                          one_fixup=form == 'coarse_1fixup')
+    assert used.tolist() == [w.size for _st, w in streams]
+    if region_end == 'exact':
+        # (A one-step group emits no word: its region is one word.)
+        assert max(used.tolist()) == words.shape[1] or not used.any()
+    else:
+        assert words.shape[1] % 8
+    for n, group in enumerate(decoded):
+        for r, row in enumerate(group):
+            assert np.array_equal(syms[n, r, :row.size].numpy(), row)

@@ -23,6 +23,11 @@ from mtscomp_tpu.ops.pallas_rans_enc import (  # noqa: E402
 
 from mtscomp_tpu_torch.ops import rans_encode as renc  # noqa: E402
 
+from mtscomp_tpu_torch.ops.rans_decode import decode_groups  # noqa: E402
+
+from chip_smoke import (  # noqa: E402
+    EDGE_CASES, REGION_ENDS, edge_groups, edge_k1_inputs, edge_k6_inputs)
+
 R, L = rans.GROUP_ROWS, rans.LANES
 
 
@@ -150,3 +155,50 @@ def test_encode_groups_checks_its_inputs():
     with pytest.raises(ValueError, match='cap'):
         renc.encode_groups(*t, cap=0)
     assert renc.launches['rans_encode'] == 0     # twins never count
+
+
+@pytest.mark.parametrize('region_end', REGION_ENDS)
+@pytest.mark.parametrize('case', sorted(EDGE_CASES))
+def test_twin_edge_cases(case, region_end):
+    """The twin K6 is held to on the card, on the inputs its windowed
+    design makes risky: 1 step and step counts around its 16-step
+    window, steps emitting close to 4096 words, rows of count 0 and
+    ragged counts, a region that the largest stream fills exactly or
+    that ends off the 8-word grid; against the normative encoder."""
+    rows, freqs, counts, steps = edge_groups(case)
+    want = [rans.rans_encode_group(g, freqs[n]) for n, g in enumerate(rows)]
+    args, cap = edge_k6_inputs(rows, freqs, counts, steps,
+                               [w.size for _st, w in want], region_end)
+    assert args[0].shape[2] == steps * L
+    states, words, n_words = renc.encode_groups(*args, cap=cap)
+    assert n_words.tolist() == [w.size for _st, w in want]
+    if region_end == 'exact':
+        # (A one-step group emits no word: its region is one word.)
+        assert max(n_words.tolist()) == cap or not n_words.any()
+    else:
+        assert cap % 8
+    for n, (st, w) in enumerate(want):
+        assert np.array_equal(states[n].numpy().view(np.uint32), st)
+        assert np.array_equal(
+            words[n, cap - w.size:].numpy().view(np.uint16), w)
+        assert not words[n, :cap - w.size].any()
+
+
+@pytest.mark.parametrize('case', sorted(EDGE_CASES))
+def test_twins_round_trip_edge_cases(case):
+    """K6's twin encodes each edge case and K1's twin decodes the streams
+    it wrote back to the source rows, reading every word."""
+    rows, freqs, counts, steps = edge_groups(case)
+    n_words = [rans.rans_encode_group(g, freqs[n])[1].size
+               for n, g in enumerate(rows)]
+    args, cap = edge_k6_inputs(rows, freqs, counts, steps, n_words, 'exact')
+    states, words, got_words = renc.encode_groups(*args, cap=cap)
+    streams = [(states[n].numpy().view(np.uint32),
+                words[n, cap - nw:].numpy().view(np.uint16))
+               for n, nw in enumerate(got_words.tolist())]
+    k1 = edge_k1_inputs(rows, freqs, counts, streams, 'exact')
+    syms, used = decode_groups(k1[0], k1[1], k1[2], k1[4], k1[5], steps)
+    assert used.tolist() == got_words.tolist() == n_words
+    for n, group in enumerate(rows):
+        for r, row in enumerate(group):
+            assert np.array_equal(syms[n, r, :row.size].numpy(), row)

@@ -10,8 +10,9 @@ Phases (any failure raises and exits non-zero):
 
 a. print the card's name and power limit (``nvidia-smi``);
 b. build the port's CUDA kernels from ``mtscomp_tpu_torch/csrc`` (ptxas
-   registers, and K1's and K6's dynamic shared memory a block) and its
-   C++ host runtime from ``mtscomp_tpu_torch/native``;
+   registers and spills of every entry, and each kernel's dynamic shared
+   memory a block) and its C++ host runtime from
+   ``mtscomp_tpu_torch/native``;
 d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks) and
    compress them with the port's own host codec (``device='none'``,
    ans v2):
@@ -30,7 +31,13 @@ d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks) and
      windows of 4 chunks (walk, then a slow oscillation);
 c. hold every kernel form against its plain PyTorch twin on the card,
    at the shapes the decode of those files gives it (byte equality),
-   K6 on the encode's B=8 batches of both 32-s files; run K1's three
+   K6 on the encode's B=8 batches of both 32-s files; hold K4's plane
+   form against its twin and against the plane combine + element form
+   (or the finalize) on batches with two coded planes, a CONST and a RAW
+   plane; run every form of K4 and K5 on the scan edge shapes
+   (``SCAN_EDGE_CASES``: lengths around the time segments, channel
+   counts around the tiles, strided and misaligned inputs, short and
+   head-extended outputs) against their twins; run K1's three
    forms and K6 on the edge cases (``EDGE_CASES`` x ``REGION_ENDS``:
    1 step and K6's window counts around 16, steps reading close to 4096
    words, rows of count 0 and ragged counts, a word region ending at the
@@ -57,9 +64,10 @@ i. time the staged decodes (the batch staged on the card once, CUDA
    events, median of repeats) and K1 alone on the whole-file batch
    (B=32, 128 groups), K6 and the device encode staged at B=8
    (checked against the host codec first), ``compress()`` of the 32-s
-   files on both routes and by layer, and each kernel form against its
+   files on both routes and by layer, each kernel form against its
    twin, its bound and, where one PyTorch call computes the same
-   function, that call.
+   function, that call, and the scans alone at B=2 and B=32
+   (``SCAN_SHAPES``).
 
 The last four lines are a JSON summary of the end-to-end and staged
 timings (with the kernel forms no path launches, which are held
@@ -92,8 +100,9 @@ from mtscomp_tpu_torch.ops import rans_decode as rd
 from mtscomp_tpu_torch.ops import rans_encode as renc
 from mtscomp_tpu_torch.ops.tables import pack_device_tables
 from mtscomp_tpu_torch.parallel.pipeline import (
-    DeviceBatchDecoder, DeviceBatchEncoder, _decode_fuse8, _read_payload,
-    check_words_used, fuse8_planes, generic_elems)
+    DeviceBatchDecoder, DeviceBatchEncoder, _decode_fuse8, _rans_planes,
+    _read_payload, check_words_used, fuse8_planes, generic_elems,
+    generic_planes)
 
 SR = 30000                    # samples per second = samples per chunk
 BATCH = 8                     # chunks per staged batch (the bench's)
@@ -145,6 +154,14 @@ KERNELS = {
         'scan_transposed_i32_inclusive',
         'mtscomp_tpu_torch/csrc/scan_transposed.cu',
         'mtscomp_tpu/ops/device_delta.py:140'),
+    'scan_transposed planes int16, head-seeded (K4)': (
+        'scan_planes_i16_seeded',
+        'mtscomp_tpu_torch/csrc/scan_transposed.cu',
+        'mtscomp_tpu/ops/device_delta.py:140'),
+    'scan_transposed planes int16, inclusive (K4)': (
+        'scan_planes_i16_inclusive',
+        'mtscomp_tpu_torch/csrc/scan_transposed.cu',
+        'mtscomp_tpu/ops/device_delta.py:140'),
     'cumsum_time int16 (K5)': (
         'cumsum_time_i16', 'mtscomp_tpu_torch/csrc/cumsum_time.cu',
         'mtscomp_tpu/ops/device_delta.py:89'),
@@ -156,20 +173,30 @@ KERNELS = {
         'mtscomp_tpu/ops/pallas_rans_enc.py:86'),
 }
 
-#: ptxas entry-name fragments -> the kernel form they compile.
-PTXAS_NAMES = (('rans_decode_groups_kernelILi0E', 'K1 octet'),
-               ('rans_decode_groups_kernelILi1E', 'K1 coarse 1'),
-               ('rans_decode_groups_kernelILi2E', 'K1 coarse 2'),
-               ('finalize_u8_kernel', 'K2/K3'),
-               ('scan_transposed_kernelIsLb1E', 'K4 i16 seeded'),
-               ('scan_transposed_kernelIsLb0E', 'K4 i16 incl'),
-               ('scan_transposed_kernelIiLb1E', 'K4 i32 seeded'),
-               ('scan_transposed_kernelIiLb0E', 'K4 i32 incl'),
-               ('cumsum_time_kernelIsE', 'K5 i16'),
-               ('cumsum_time_kernelIiE', 'K5 i32'),
-               ('rans_encode_groups_kernel', 'K6'))
+#: ptxas entry-name fragments (all of them in the mangled name) -> the
+#: kernel it compiles. K4 and K5 are three passes: segment totals, their
+#: prefixes (one kernel, compiled into both sources), the seeded scan.
+PTXAS_NAMES = (
+    (('rans_decode_groups_kernelILi0E',), 'K1 octet'),
+    (('rans_decode_groups_kernelILi1E',), 'K1 coarse 1'),
+    (('rans_decode_groups_kernelILi2E',), 'K1 coarse 2'),
+    (('finalize_u8_kernel',), 'K2/K3'),
+    (('scan_transposed_totals_kernel', 'ElemLoadIsE'), 'K4 i16 totals'),
+    (('scan_transposed_totals_kernel', 'ElemLoadIiE'), 'K4 i32 totals'),
+    (('scan_transposed_totals_kernel', 'PlaneLoad'), 'K4 planes totals'),
+    (('scan_transposed_kernel', 'ElemLoadIsE'), 'K4 i16 scan'),
+    (('scan_transposed_kernel', 'ElemLoadIiE'), 'K4 i32 scan'),
+    (('scan_transposed_kernel', 'PlaneLoad'), 'K4 planes scan'),
+    (('cumsum_time_totals_kernelIsE',), 'K5 i16 totals'),
+    (('cumsum_time_totals_kernelIiE',), 'K5 i32 totals'),
+    (('cumsum_time_scan_kernelIsE',), 'K5 i16 scan'),
+    (('cumsum_time_scan_kernelIiE',), 'K5 i32 scan'),
+    (('seg_prefix_kernel',), 'K4/K5 prefix'),
+    (('rans_encode_groups_kernel',), 'K6'))
 
 ORDER1 = {'time_diff_order': 1, 'do_spatial_diff': False}
+MODE_NAMES = {ans_codec.MODE_RAW: 'RAW', ans_codec.MODE_RANS: 'RANS',
+              ans_codec.MODE_CONST: 'CONST'}
 
 #: K6's steps a window (``kWindow`` in csrc/rans_encode.cu).
 ENC_WINDOW = 16
@@ -191,6 +218,27 @@ EDGE_CASES = {
 #: Where a group's word region ends (K1's W, K6's cap): at the largest
 #: stream's last word, or one past it off the 8-word grid.
 REGION_ENDS = ('exact', 'off_grid')
+
+#: Edge shapes of the time scans K4 and K5 (phase c on the card, the
+#: port's CPU tests on the twins): name -> (B, C, T', variant), T' the
+#: steps per channel. Time lengths sit around K4's and K5's segments (64
+#: steps; 32 for K4's int32), channel counts around a warp, a 16-byte
+#: vector and K4's 256-channel tile; 40,000 channels exceed K5's tile.
+#: Variants: 'channel_slice' feeds a channel slice of a wider tensor,
+#: 'off_grid' a tensor whose base is off the 16-byte grid, 'short_out'
+#: asks K4 for fewer steps than it is given, 'plus_one' its head-seeded
+#: form for one more.
+SCAN_EDGE_CASES = {
+    '%dx%dx%d' % (1 + 2 * ((i + j) % 2), C, T): (
+        1 + 2 * ((i + j) % 2), C, T, 'plain')
+    for i, T in enumerate((1, 2, 31, 32, 33, 63, 64, 65, 67, 131))
+    for j, C in enumerate((1, 7, 8, 33, 385, 1025))}
+SCAN_EDGE_CASES.update({
+    '%dx%dx%d_%s' % (B, C, T, variant): (B, C, T, variant)
+    for B, C, T in ((3, 33, 131), (1, 385, 65), (3, 7, 64))
+    for variant in ('channel_slice', 'off_grid', 'short_out', 'plus_one')})
+SCAN_EDGE_CASES['1x40000x3'] = (1, 40000, 3, 'plain')
+SCAN_EDGE_CASES['1x40000x3_off_grid'] = (1, 40000, 3, 'off_grid')
 
 #: Recordings: name -> (signal, seconds, channels, dtype, seed, compress
 #: options, foreign writer's minimum frequency or None, expected
@@ -248,19 +296,25 @@ RECORDINGS = {
 }
 
 #: Paths, each driven with the counts set to 0 just before it: name ->
-#: (recordings, kernel forms that must have launched).
+#: (recordings, kernel forms that must have launched, forms that must
+#: not). The generic decode of 2-byte data goes from K1 into K4's plane
+#: form; K4's int16 element form stays on the branches through the
+#: bit6 layouts (uint8, int8, a RAW low plane), its int32 form through
+#: the 4-byte files, K5 through C order, the spatial diffs and order 2.
 PATHS = {
     'fuse8': (('int16_385ch', 'int16_384ch', 'uint16_385ch'),
-              ('rans_decode_octet', 'finalize_u8', 'finalize_u8_tail')),
+              ('rans_decode_octet', 'finalize_u8', 'finalize_u8_tail'), ()),
     'generic': (('spiky_int16_385ch',),
-                ('rans_decode_octet', 'scan_transposed_i16_seeded')),
+                ('rans_decode_octet', 'scan_planes_i16_seeded'),
+                ('scan_transposed_i16_seeded',)),
     'branches': (tuple(name for name, r in RECORDINGS.items()
                        if r[1] == BRANCH_SECONDS)
                  + ('mixed_modes', 'adaptive'),
                  ('rans_decode_octet', 'rans_decode_coarse_1fixup',
                   'rans_decode_coarse_2fixups', 'finalize_u8_tail',
-                  'scan_transposed_i16_seeded', 'scan_transposed_i32_seeded',
-                  'cumsum_time_i16', 'cumsum_time_i32')),
+                  'scan_planes_i16_seeded', 'scan_transposed_i16_seeded',
+                  'scan_transposed_i32_seeded', 'cumsum_time_i16',
+                  'cumsum_time_i32'), ()),
 }
 
 #: Encode paths, each driven with the counts set to 0 just before it:
@@ -285,7 +339,7 @@ ENCODED = {name for names, _forms in ENCODE_PATHS.values() for name in names}
 #: never makes (it stores one for every 2-D chunk): they are held against
 #: their twins and timed, and reported apart from the path kernels.
 ON_PATH = {form for paths in (PATHS, ENCODE_PATHS)
-           for _names, forms in paths.values() for form in forms}
+           for _names, forms, *_not in paths.values() for form in forms}
 
 
 def log(msg):
@@ -311,13 +365,21 @@ def ptxas_resources(ptxas):
     out, name = {}, None
     for line in ptxas.splitlines():
         if 'Compiling entry function' in line:
-            name = next((v for k, v in PTXAS_NAMES if k in line), None)
+            name = next((v for k, v in PTXAS_NAMES
+                         if all(part in line for part in k)), None)
         elif name and ('spill stores' in line or 'registers' in line):
             text = line.split(':', 1)[-1].strip()
             if 'spill stores' in text:
                 text = text.split(', ')[1]
-            out[name] = out[name] + '; ' + text if name in out else text
-    return out
+            parts = out.setdefault(name, [])
+            if text not in parts:         # one kernel in two sources: once
+                parts.append(text)
+    missing = [v for _k, v in PTXAS_NAMES if v not in out]
+    require(not missing, 'ptxas reported no resources for %s' % missing)
+    spills = {name: parts for name, parts in out.items()
+              if not any(p.startswith('0 bytes spill stores') for p in parts)}
+    require(not spills, 'ptxas reports register spills: %s' % spills)
+    return {name: '; '.join(parts) for name, parts in out.items()}
 
 
 def rounded(x):
@@ -460,6 +522,95 @@ def edge_k6_inputs(rows, freqs, counts, steps, n_words, region_end):
     pk, rcp = renc.pack_encoder_tables(freqs)
     return (tuple(torch.from_numpy(a) for a in (symbols, pk, rcp, counts)),
             region_width(n_words, region_end))
+
+
+def scan_edge_arrays(name):
+    """The seeded inputs of one of ``SCAN_EDGE_CASES``, as numpy arrays
+    over the whole integer range: ``elems`` and ``head`` by width (16,
+    32), the (B, C, T') byte planes ``lo`` and ``hi`` and the per-chunk
+    constants ``lo_const`` and ``hi_const``. The port's CPU tests import
+    it from here."""
+    B, C, T, _variant = SCAN_EDGE_CASES[name]
+    rng = np.random.default_rng(200 + list(SCAN_EDGE_CASES).index(name))
+    out = {}
+    for bits, dtype in ((16, np.int16), (32, np.int32)):
+        info = np.iinfo(dtype)
+        out['elems%d' % bits] = rng.integers(
+            info.min, info.max, size=(B, C, T), endpoint=True,
+            dtype=np.int64).astype(dtype)
+        out['head%d' % bits] = rng.integers(
+            info.min, info.max, size=(B, C), endpoint=True,
+            dtype=np.int64).astype(dtype)
+    for key, shape in (('lo', (B, C, T)), ('hi', (B, C, T)),
+                       ('lo_const', (B,)), ('hi_const', (B,))):
+        out[key] = rng.integers(0, 255, size=shape, endpoint=True,
+                                dtype=np.int64).astype(np.uint8)
+    return out
+
+
+def edge_tensor(a, variant, device):
+    """A (B, C, T') array as the tensor a scan edge case feeds: a channel
+    slice of a wider tensor, a view whose base is one element off the
+    16-byte grid, or the plain contiguous tensor."""
+    t = torch.from_numpy(a).to(device)
+    B, C, T = t.shape
+    if variant == 'channel_slice':
+        wide = torch.zeros((B, C + 5, T), dtype=t.dtype, device=device)
+        wide[:, 2:2 + C] = t
+        return wide[:, 2:2 + C]
+    if variant == 'off_grid':
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(B, C, T)
+    return t
+
+
+def edge_n_samples(T, variant, seeded):
+    """The output steps a scan edge case asks K4 for."""
+    if variant == 'short_out':
+        return max(T - 3, 0)
+    return T + 1 if variant == 'plus_one' and seeded else T
+
+
+def scan_edge_calls(name, device):
+    """Every form of K4 and K5 on one of ``SCAN_EDGE_CASES``: a list of
+    ``(label, kernel, twin, args, kwargs)`` with the tensors on
+    ``device``. K5 takes the elements time-major, (B, T', C); the plane
+    form runs with two coded planes and with either plane constant,
+    zigzag on and off."""
+    _B, _C, T, variant = SCAN_EDGE_CASES[name]
+    a = scan_edge_arrays(name)
+    calls = []
+    for bits in (16, 32):
+        elems = edge_tensor(a['elems%d' % bits], variant, device)
+        head = torch.from_numpy(a['head%d' % bits]).to(device)
+        time_major = edge_tensor(np.ascontiguousarray(
+            a['elems%d' % bits].transpose(0, 2, 1)), variant, device)
+        calls.append(('K5 i%d' % bits, dd.cumsum_time, dd.cumsum_time_ref,
+                      (time_major,), {}))
+        for h in (head, None):
+            calls.append((
+                'K4 i%d %s' % (bits, 'inclusive' if h is None else 'seeded'),
+                dd.cumsum_time_transposed, dd.cumsum_time_transposed_ref,
+                (elems, h),
+                {'n_samples': edge_n_samples(T, variant, h is not None)}))
+    lo = edge_tensor(a['lo'], variant, device)
+    hi = edge_tensor(a['hi'], variant, device)
+    lo_c = torch.from_numpy(a['lo_const']).to(device)
+    hi_c = torch.from_numpy(a['hi_const']).to(device)
+    head = torch.from_numpy(a['head16']).to(device)
+    for kind, planes in (('two coded', (lo, hi)), ('const hi', (lo, hi_c)),
+                         ('const lo', (lo_c, hi))):
+        for h in (head, None):
+            for zigzag in (True, False):
+                calls.append((
+                    'K4 planes, %s, %s, zigzag %s' % (
+                        kind, 'inclusive' if h is None else 'seeded', zigzag),
+                    dd.cumsum_time_transposed_planes,
+                    dd.cumsum_time_transposed_planes_ref, planes + (h,),
+                    {'n_samples': edge_n_samples(T, variant, h is not None),
+                     'zigzag': zigzag}))
+    return calls
 
 
 def to_dtype(walk, dtype):
@@ -712,8 +863,13 @@ def check_kernels(recs):
         calls.setdefault(name, (kernel, twin, args, kwargs, err))
         return out
 
+    def held(_name, kernel, twin, args, kwargs):
+        # Compared, but not kept as the form's timed call.
+        return compare(kernel, twin, args, kwargs)[1]
+
     for name in ('int16_385ch', 'int16_384ch', 'spiky_int16_385ch', 'int32',
-                 'foreign_1fixup', 'foreign_2fixups'):
+                 'foreign_1fixup', 'foreign_2fixups', 'order2_generic',
+                 'raw_low_plane'):
         r, parsed, fn, args = recs[name].staged()
         k1_name, kernel, twin, k1_args, k1_kw = k1_calls(fn, args)
         live = (torch.arange(k1_args[-1] * LANES, device=args[4].device)
@@ -738,8 +894,14 @@ def check_kernels(recs):
                                      dd.cumsum_time_transposed_u8_tail_ref)
                 cA = bulk.shape[1]
                 f_args = (bulk, tail_block, heads[:, :cA], heads[:, cA:], hi)
-            record(key, kernel, twin, f_args, {'n_samples': SR})
+            out = record(key, kernel, twin, f_args, {'n_samples': SR})
             done.append(key)
+            if tail_block is None:
+                # The finalize is the plane form with a CONST high plane.
+                C = heads.shape[1]
+                check_plane_form(held, (bulk[:, :C, :SR - 1], hi), heads,
+                                 True, out)
+                done.append('K4 plane form (CONST high plane) = K2')
         else:
             lay = kw['lay']
             elems = generic_elems(syms, const_vals, raw_vals, lay)
@@ -756,6 +918,13 @@ def check_kernels(recs):
             record('cumsum_time %s (K5)' % width, dd.cumsum_time,
                    dd.cumsum_time_ref, (out,), {})
             done.append('K4 both modes, K5 (%s)' % width)
+            if lay.itemsize == 2:
+                check_plane_form(record, staged_planes(
+                    syms, const_vals, raw_vals, lay), heads, lay.zigzag, out)
+                done.append('K4 plane form (%s%s) = combine + element form'
+                            % ('+'.join(MODE_NAMES[m] for m in lay.modes),
+                               ', K1\'s rows in place' if lay.plane_form
+                               else ''))
         log('c. %s: B=%d S=%d route %s; %s equal their twins byte for '
             'byte' % (name, len(parsed), k1_args[-1], fn.func.__name__,
                       ', '.join(done)))
@@ -765,6 +934,63 @@ def check_kernels(recs):
     require(set(calls) == decode_forms, 'the staged batches ran kernels %s, '
             'expected %s' % (sorted(calls), sorted(decode_forms)))
     return calls, staged
+
+
+def staged_planes(syms, const_vals, raw_vals, lay):
+    """The two byte planes of a staged 2-byte F-order batch as K4's plane
+    form takes them: the route's own views where it takes the plane
+    form, else the reassembled rANS planes (copies), the RAW plane's
+    view and the CONST plane's values."""
+    if lay.plane_form:
+        return tuple(generic_planes(syms, const_vals, raw_vals, lay))
+    coded = _rans_planes(syms, lay) if lay.planes(ans_codec.MODE_RANS) \
+        else None
+    planes = []
+    for p, mode in enumerate(lay.modes):
+        j = lay.planes(mode).index(p)
+        if mode == ans_codec.MODE_RANS:
+            planes.append(coded[:, j].view(lay.B, lay.C, lay.Tc))
+        elif mode == ans_codec.MODE_RAW:
+            planes.append(raw_vals[:, j].view(lay.B, lay.C, lay.Tc))
+        else:
+            planes.append(const_vals[:, j])
+    return tuple(planes)
+
+
+def check_plane_form(record, planes, heads, zigzag, want):
+    """K4's plane form on a staged batch's planes: both modes against the
+    twin, and the head-seeded one against ``want``, what the route's other
+    kernels made of the same batch."""
+    out = record('scan_transposed planes int16, head-seeded (K4)',
+                 dd.cumsum_time_transposed_planes,
+                 dd.cumsum_time_transposed_planes_ref, planes + (heads,),
+                 {'n_samples': SR, 'zigzag': zigzag})
+    require(torch.equal(out, want), 'K4\'s plane form differs from the '
+            'route\'s other kernels on the same batch')
+    record('scan_transposed planes int16, inclusive (K4)',
+           dd.cumsum_time_transposed_planes,
+           dd.cumsum_time_transposed_planes_ref, planes + (None,),
+           {'zigzag': zigzag})
+
+
+def check_scan_edge_cases():
+    """Phase c, edge shapes: every form of K4 and K5 on every one of
+    ``SCAN_EDGE_CASES``, against its twin (byte equality)."""
+    n = 0
+    for case in SCAN_EDGE_CASES:
+        for label, kernel, twin, args, kwargs in scan_edge_calls(case,
+                                                                 DEVICE):
+            try:
+                compare(kernel, twin, args, kwargs)
+            except RuntimeError as e:
+                raise RuntimeError('scan edge case %s, %s: %s'
+                                   % (case, label, e)) from e
+            n += 1
+    log('c. %d scan edge shapes (T\' 1 to 131 and C 1 to 1025 around the '
+        'segments and tiles, 40000 channels, channel slices, bases off the '
+        '16-byte grid, short and head-extended outputs): %d calls of K4 '
+        '(element and plane forms) and K5 equal their twins'
+        % (len(SCAN_EDGE_CASES), n))
 
 
 def check_edge_cases():
@@ -965,7 +1191,7 @@ def drive_paths(recs):
     """Phases e-g, path by path: counts set to 0 just before each path
     and read just after. Returns (end-to-end times, counts by path)."""
     end_to_end, counts_by_path = {}, {}
-    for path, (names, kernels) in PATHS.items():
+    for path, (names, kernels, never) in PATHS.items():
         mt.reset_launch_counts()
         for name in names:
             end_to_end[name] = decode_through_reader(
@@ -978,6 +1204,9 @@ def drive_paths(recs):
         for key in kernels:
             require(counts[key] > 0, 'kernel %s never launched on the %s '
                     'path' % (key, path))
+        for key in never:
+            require(counts[key] == 0, 'kernel %s launched on the %s path'
+                    % (key, path))
         require(counts['host_fallback_chunks'] == 0,
                 '%d chunks fell back to the host codec on the %s path'
                 % (counts['host_fallback_chunks'], path))
@@ -1135,8 +1364,18 @@ def work(key, args, out):
         small = sum(_nbytes(a) for a in args if a.dim() < 3)  # heads, hi
         return B * C * (T - 1) + small + _nbytes(out), 6 * out.numel()
     if key.startswith('scan_transposed'):
-        return (sum(_nbytes(a) for a in args) + _nbytes(out),
-                out.numel())
+        return (sum(_nbytes(a) for a in args if a is not None)
+                + _nbytes(out), out.numel())
+    if key.startswith('scan_planes'):
+        # A coded plane's live bytes (the steps the output needs), a
+        # constant plane's value per chunk, the heads; the finalize's 6
+        # operations a sample.
+        B, T, C = out.shape
+        lo, hi, head = args
+        live = B * C * (T - 1 if head is not None else T)
+        return (sum(live if p.dim() == 3 else _nbytes(p) for p in (lo, hi))
+                + (0 if head is None else _nbytes(head)) + _nbytes(out),
+                6 * out.numel())
     if key.startswith('cumsum_time'):
         return _nbytes(args[0]) + _nbytes(out), out.numel()
     if key == 'rans_encode':
@@ -1199,6 +1438,58 @@ def time_kernels(calls, counts_by_path):
     return on_path, off_path
 
 
+#: Phase i, the scans alone beside their staged B=8 calls: K5 at B=2, the
+#: batch its paths launch, and every int16 form at B=32 (a whole 32-s
+#: file in one batch); (kernel form, chunks).
+SCAN_SHAPES = (('cumsum_time int16 (K5)', 2), ('cumsum_time int32 (K5)', 2),
+               ('cumsum_time int16 (K5)', 32),
+               ('scan_transposed int16, head-seeded (K4)', 32),
+               ('scan_transposed planes int16, head-seeded (K4)', 32))
+
+
+def time_scan_shapes():
+    """Phase i: K4 and K5 on seeded random elements of ``SCAN_SHAPES`` at
+    385 channels x 30,000 steps: each held against its twin, then timed
+    against its bound."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+
+    def rand(shape, dtype):
+        n = int(np.prod(shape)) * dtype.itemsize
+        return torch.randint(0, 256, (n,), dtype=torch.uint8, device=DEVICE,
+                             generator=gen).view(dtype).view(shape)
+
+    out = []
+    for name, B in SCAN_SHAPES:
+        key = KERNELS[name][0]
+        dtype = torch.int32 if 'i32' in key else torch.int16
+        if key.startswith('cumsum_time'):
+            kernel, twin = dd.cumsum_time, dd.cumsum_time_ref
+            args, kwargs = (rand((B, SR, 385), dtype),), {}
+        elif key.startswith('scan_planes'):
+            kernel = dd.cumsum_time_transposed_planes
+            twin = dd.cumsum_time_transposed_planes_ref
+            # Rows 128-padded as K1 leaves them: the pads are never read.
+            args = tuple(rand((B, 385, SR + 80), torch.uint8)[:, :, :SR - 1]
+                         for _ in range(2)) + (rand((B, 385), dtype),)
+            kwargs = {'n_samples': SR, 'zigzag': True}
+        else:
+            kernel = dd.cumsum_time_transposed
+            twin = dd.cumsum_time_transposed_ref
+            args = (rand((B, 385, SR - 1), dtype), rand((B, 385), dtype))
+            kwargs = {'n_samples': SR}
+        _err, got = compare(kernel, twin, args, kwargs)
+        nbytes, ops = work(key, args, got)
+        del got
+        ms = cuda_ms(lambda: kernel(*args, **kwargs), REPS)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S)
+        out.append({'name': name, 'batch_chunks': B, 'ms': ms,
+                    'bound_ms': bound, 'max_abs_err': 0})
+        log('i. %s at B=%d (385 ch x %d steps, random elements): %.4f ms, '
+            'bound %.4f ms, equal to its twin' % (name, B, SR, ms, bound))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA GPU is visible; nothing was run.',
@@ -1221,6 +1512,11 @@ def main():
     smem = {form: lib.mts_rans_decode_smem_bytes(fixups) for fixups, form in
             enumerate(('K1 octet', 'K1 coarse 1', 'K1 coarse 2'))}
     smem['K6'] = lib.mts_rans_encode_smem_bytes()
+    for width, size in (('i16', 2), ('i32', 4)):       # at 385 channels
+        smem['K4 %s scan' % width] = lib.mts_scan_transposed_smem_bytes(
+            385, dd.scan_transposed_geometry(385, size)[1])
+        smem['K5 ' + width] = lib.mts_cumsum_time_smem_bytes(
+            385, *dd.cumsum_time_geometry(385, size), size)
     log('b. dynamic shared memory a block (bytes): %s' % json.dumps(smem))
     # The host codec's C++ runtime builds at first use: before any timing.
     t0 = time.perf_counter()
@@ -1234,6 +1530,7 @@ def main():
         recs = {name: Recording(workdir, name) for name in RECORDINGS}
         calls, staged = check_kernels(recs)
         check_edge_cases()
+        check_scan_edge_cases()
         encoded = check_encode_kernel(recs)
         enc, x, args, err = encoded['spiky_int16_385ch']
         calls['rans_encode_groups (K6)'] = (
@@ -1256,6 +1553,7 @@ def main():
                       for name in ('int16_385ch', 'spiky_int16_385ch')}
         kernels, off_path = time_kernels(calls, counts_by_path)
         del calls
+        scan_shapes = time_scan_shapes()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1270,6 +1568,7 @@ def main():
                             'layers_s': layers, 'compress_s': compress_s,
                             'staged_encode': staged_encode,
                             'encode_layers_s': enc_layers,
+                            'scan_shapes': scan_shapes,
                             'held_against_twin_only': off_path})))
     log(json.dumps({'kernels': kernels}))
     log(card)

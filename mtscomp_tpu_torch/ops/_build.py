@@ -111,18 +111,25 @@ def _declare(lib):
     lib.mts_finalize_u8.argtypes = [
         i, p, ll, i, i, p, ll, i, p, p, p, i, i, i, i, p]
     lib.mts_scan_transposed.argtypes = [
-        i, p, ll, ll, p, p, i, i, i, i, i, p]
-    lib.mts_cumsum_time.argtypes = [i, p, p, i, i, i, i, p]
+        i, p, ll, ll, p, p, p, i, i, i, i, i, i, i, p]
+    lib.mts_scan_transposed_planes.argtypes = [
+        i, p, ll, ll, p, p, ll, ll, p, i, p, p, p, i, i, i, i, i, i, p]
+    lib.mts_cumsum_time.argtypes = [i, p, p, p, i, i, i, i, i, i, p]
     lib.mts_rans_encode_groups.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
                                            ll]
     for fn in (lib.mts_rans_decode_groups, lib.mts_finalize_u8,
-               lib.mts_scan_transposed, lib.mts_cumsum_time,
+               lib.mts_scan_transposed, lib.mts_scan_transposed_planes,
+               lib.mts_cumsum_time,
                lib.mts_rans_encode_groups):
         fn.restype = i
     lib.mts_rans_decode_smem_bytes.argtypes = [i]
     lib.mts_rans_decode_smem_bytes.restype = i
     lib.mts_rans_encode_smem_bytes.argtypes = []
     lib.mts_rans_encode_smem_bytes.restype = i
+    lib.mts_scan_transposed_smem_bytes.argtypes = [i, i]
+    lib.mts_scan_transposed_smem_bytes.restype = i
+    lib.mts_cumsum_time_smem_bytes.argtypes = [i, i, i, i]
+    lib.mts_cumsum_time_smem_bytes.restype = i
     lib.mts_cuda_error_string.argtypes = [i]
     lib.mts_cuda_error_string.restype = ctypes.c_char_p
 

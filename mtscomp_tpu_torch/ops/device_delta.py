@@ -11,10 +11,21 @@ selects between them):
   keep the JAX names and reach ONE CUDA kernel (``csrc/finalize_u8.cu``):
   on the card the ragged tail is just a second input pointer, so the
   TPU's two kernels become one.
-- K4, ``cumsum_time_transposed`` (``csrc/scan_transposed.cu``): the
-  generic route's transpose + time scan of int16/int32 diffs.
+- K4 (``csrc/scan_transposed.cu``), the generic route's transpose + time
+  scan, in two forms that share the kernel bodies:
+  ``cumsum_time_transposed`` scans int16/int32 elements, and
+  ``cumsum_time_transposed_planes`` reads a 2-byte element's two byte
+  planes itself (K1's rows or a RAW plane viewed in place, or a CONST
+  plane's value per chunk), combines them and undoes the zigzag on the
+  way in, so that no torch pass runs between K1 and the scan.
 - K5, ``cumsum_time`` (``csrc/cumsum_time.cu``): the carried time cumsum
   of time-major int16/int32 samples.
+
+K4 and K5 split time into segments, one block each: a pass of segment
+totals into a scratch tensor the wrapper allocates, their exclusive
+prefixes, then the seeded scan of each segment. The wrappers fix the
+segment length and the channel tile (``cumsum_time_geometry``,
+``scan_transposed_geometry``); a call counts as one launch.
 
 Unlike the TPU kernels, every output is written at its final shape: no
 128-multiple padding of time or channels to trim afterwards.
@@ -40,12 +51,16 @@ from . import _build
 #: :func:`cumsum_time_transposed_u8` and its tail form through
 #: :func:`cumsum_time_transposed_u8_tail`; K4 through
 #: :func:`cumsum_time_transposed` by element type and mode (seeded by a
-#: head, or inclusive); K5 through :func:`cumsum_time` by element type.
+#: head, or inclusive) and its plane form through
+#: :func:`cumsum_time_transposed_planes` by mode; K5 through
+#: :func:`cumsum_time` by element type. A multi-pass kernel counts one
+#: launch a call.
 launches = {'finalize_u8': 0, 'finalize_u8_tail': 0,
             'scan_transposed_i16_seeded': 0,
             'scan_transposed_i16_inclusive': 0,
             'scan_transposed_i32_seeded': 0,
             'scan_transposed_i32_inclusive': 0,
+            'scan_planes_i16_seeded': 0, 'scan_planes_i16_inclusive': 0,
             'cumsum_time_i16': 0, 'cumsum_time_i32': 0}
 
 #: The scan kernels' element types (1-byte data is widened by callers),
@@ -249,6 +264,35 @@ def cumsum_time_ref(d):
 
 # --- K5: carried time cumsum --------------------------------------------
 
+#: K5's block tile: at most this many bytes of one chunk's time segment in
+#: shared memory, and at most this many time steps a segment.
+K5_TILE_BYTES = 64 * 1024
+K5_SEG_STEPS = 64
+
+
+def cumsum_time_geometry(C, itemsize):
+    """``(n_steps, c_tile)`` of K5's split of a (B, T, C) tensor: time
+    steps a segment and channels a tile. All channels make one tile (a
+    segment is then one contiguous span) unless one time step's row
+    exceeds the tile; the tiles are then even."""
+    c_max = K5_TILE_BYTES // itemsize
+    c_tile = -(-C // -(-C // c_max)) if C > c_max else max(C, 1)
+    return max(1, min(K5_SEG_STEPS,
+                      K5_TILE_BYTES // (c_tile * itemsize))), c_tile
+
+
+def _scratch(B, T, n_steps, C, device):
+    """The (B, segments, C) totals of a split scan; None for one segment."""
+    n_seg = -(-T // n_steps)
+    if n_seg <= 1:
+        return None
+    return torch.empty((B, n_seg, C), dtype=torch.int32, device=device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def cumsum_time(d):
     """(B, T, C) int16/int32 -> its wrapping cumsum over time (K5).
 
@@ -266,16 +310,33 @@ def cumsum_time(d):
     d = d.contiguous()
     B, T, C = d.shape
     out = torch.empty_like(d)
+    if out.numel() == 0:
+        return out
+    n_steps, c_tile = cumsum_time_geometry(C, d.element_size())
+    scratch = _scratch(B, T, n_steps, C, d.device)
     lib = _build.library()
     rc = lib.mts_cumsum_time(d.device.index, d.data_ptr(), out.data_ptr(),
-                             B, T, C, d.element_size(),
-                             _build.stream_handle(d))
+                             _ptr(scratch), B, T, C, n_steps, c_tile,
+                             d.element_size(), _build.stream_handle(d))
     _build.check(lib, rc, 'cumsum_time')
     launches['cumsum_time_' + _WIDTH[d.dtype]] += 1
     return out
 
 
 # --- K4: transpose + time scan ------------------------------------------
+
+#: K4's time steps a segment by element size (a tile row of 32 words), and
+#: its largest channel tile (one thread a channel).
+K4_SEG_STEPS = {2: 64, 4: 32}
+K4_MAX_C_TILE = 256
+
+
+def scan_transposed_geometry(C, itemsize):
+    """``(n_steps, c_tile)`` of K4's split: time steps a segment, and
+    channels a tile (even tiles of at most 256, rounded up to 32)."""
+    per = -(-C // -(-C // K4_MAX_C_TILE)) if C > 0 else 1
+    return K4_SEG_STEPS[itemsize], -(-per // 32) * 32
+
 
 def cumsum_time_transposed(elems, head=None, n_samples=None):
     """(B, C, T') int16/int32 channel-major -> (B, T, C) integrated (K4).
@@ -293,7 +354,7 @@ def cumsum_time_transposed(elems, head=None, n_samples=None):
     if elems.device.type != 'cuda':
         raise ValueError("cumsum_time_transposed runs on CUDA or CPU "
                          "tensors, not %s" % elems.device)
-    if elems.stride(2) != 1:
+    if elems.stride(2) != 1 and elems.shape[2] > 1:
         raise ValueError("elems rows must be time-contiguous")
     B, C, t_in = elems.shape
     if head is not None:
@@ -301,11 +362,13 @@ def cumsum_time_transposed(elems, head=None, n_samples=None):
     out = torch.empty((B, T, C), dtype=elems.dtype, device=elems.device)
     if out.numel() == 0:
         return out
+    n_steps, c_tile = scan_transposed_geometry(C, elems.element_size())
+    scratch = _scratch(B, T, n_steps, C, elems.device)
     lib = _build.library()
     rc = lib.mts_scan_transposed(
         elems.device.index, elems.data_ptr(), elems.stride(0),
-        elems.stride(1), None if head is None else head.data_ptr(),
-        out.data_ptr(), B, C, T, t_in, elems.element_size(),
+        elems.stride(1), _ptr(head), out.data_ptr(), _ptr(scratch), B, C, T,
+        t_in, n_steps, c_tile, elems.element_size(),
         _build.stream_handle(elems))
     _build.check(lib, rc, 'scan_transposed')
     launches['scan_transposed_%s_%s' % (
@@ -323,11 +386,17 @@ def _scan_t_check(elems, head, n_samples):
         raise ValueError("cumsum_time_transposed takes (B, C, T) int16 or "
                          "int32, got %s %s" % (elems.dtype,
                                                tuple(elems.shape)))
-    B, C, t_in = elems.shape
+    return _scan_t_head(elems, head, n_samples, elems.dtype)
+
+
+def _scan_t_head(rows, head, n_samples, dtype):
+    """Check ``head`` against the (B, C, T') ``rows`` it seeds and return
+    the output's T."""
+    B, C, t_in = rows.shape
     if head is not None:
-        if head.dtype != elems.dtype or tuple(head.shape) != (B, C):
-            raise ValueError("head must be (B, C) %s" % elems.dtype)
-        if head.device != elems.device:
+        if head.dtype != dtype or tuple(head.shape) != (B, C):
+            raise ValueError("head must be (B, C) %s" % dtype)
+        if head.device != rows.device:
             raise ValueError("all inputs must be on one device")
     T = t_in if n_samples is None else int(n_samples)
     if not 0 <= T <= t_in + (head is not None):
@@ -344,3 +413,96 @@ def _scan_t_ref(elems, head, T):
                                    device=elems.device), s], dim=2)
         s = s + head.to(torch.int64)[:, :, None]
     return wrap_to(s[:, :, :T], elems.dtype).transpose(1, 2).contiguous()
+
+
+# --- K4, plane form: byte planes -> combine, unzigzag, scan, transpose ---
+
+def cumsum_time_transposed_planes(lo, hi, head=None, n_samples=None,
+                                  zigzag=True):
+    """The two byte planes of 2-byte elements -> (B, T, C) int16 samples
+    (K4, plane form): ``elem = lo | hi << 8``, the inverse zigzag where
+    ``zigzag`` is set, then :func:`cumsum_time_transposed` of the elements
+    (inclusive, or exclusive and seeded by the int16 ``head`` (B, C)).
+
+    A plane is a uint8 (B, C, T') tensor whose rows are time-contiguous
+    (batch and channel strides are free: a view of K1's rows, pads
+    skipped, or of a RAW plane), or a uint8 (B,) tensor, one constant per
+    chunk (a CONST plane). At least one plane is a (B, C, T') tensor.
+    """
+    rows, T = _planes_check(lo, hi, head, n_samples)
+    if rows.device.type == 'cpu':
+        return _scan_t_ref(_planes_elems_ref(lo, hi, zigzag), head, T)
+    if rows.device.type != 'cuda':
+        raise ValueError("cumsum_time_transposed_planes runs on CUDA or CPU "
+                         "tensors, not %s" % rows.device)
+    B, C, t_in = rows.shape
+    if head is not None:
+        head = head.contiguous()
+    out = torch.empty((B, T, C), dtype=torch.int16, device=rows.device)
+    if out.numel() == 0:
+        return out
+    n_steps, c_tile = scan_transposed_geometry(C, 2)
+    scratch = _scratch(B, T, n_steps, C, rows.device)
+    lo_args, lo = _plane_args(lo)
+    hi_args, hi = _plane_args(hi)
+    lib = _build.library()
+    rc = lib.mts_scan_transposed_planes(
+        rows.device.index, *lo_args, *hi_args, int(bool(zigzag)), _ptr(head),
+        out.data_ptr(), _ptr(scratch), B, C, T, t_in, n_steps, c_tile,
+        _build.stream_handle(rows))
+    _build.check(lib, rc, 'scan_transposed_planes')
+    launches['scan_planes_i16_%s'
+             % ('inclusive' if head is None else 'seeded')] += 1
+    return out
+
+
+def _plane_args(p):
+    """A byte plane's C arguments ``[rows, batch stride, channel stride,
+    consts]``, and the tensor they point into."""
+    if p.dim() == 3:
+        return [p.data_ptr(), p.stride(0), p.stride(1), None], p
+    p = p.contiguous()
+    return [None, 0, 0, p.data_ptr()], p
+
+
+def cumsum_time_transposed_planes_ref(lo, hi, head=None, n_samples=None,
+                                      zigzag=True):
+    """Plain PyTorch twin of :func:`cumsum_time_transposed_planes`: the
+    generic route's plane combine and inverse zigzag, then the element
+    form's twin."""
+    _rows, T = _planes_check(lo, hi, head, n_samples)
+    return _scan_t_ref(_planes_elems_ref(lo, hi, zigzag), head, T)
+
+
+def _planes_check(lo, hi, head, n_samples):
+    """``(a (B, C, T') plane, T)`` of the plane form's checked inputs."""
+    rows = [p for p in (lo, hi) if p.dim() == 3]
+    if not rows:
+        raise ValueError("at least one byte plane must be a (B, C, T) "
+                         "tensor")
+    shape = rows[0].shape
+    for p in (lo, hi):
+        if p.dtype != torch.uint8:
+            raise ValueError("byte planes must be uint8, got %s" % p.dtype)
+        if p.dim() == 3:
+            if p.shape != shape:
+                raise ValueError("the byte planes differ in shape: %s, %s"
+                                 % (tuple(shape), tuple(p.shape)))
+            if p.stride(2) != 1 and shape[2] > 1:
+                raise ValueError("plane rows must be time-contiguous")
+        elif tuple(p.shape) != (shape[0],):
+            raise ValueError("a constant plane must be (B,) = (%d,), got %s"
+                             % (shape[0], tuple(p.shape)))
+        if p.device != rows[0].device:
+            raise ValueError("all inputs must be on one device")
+    return rows[0], _scan_t_head(rows[0], head, n_samples, torch.int16)
+
+
+def _planes_elems_ref(lo, hi, zigzag):
+    """The planes' (B, C, T') int16 elements: the little-endian byte
+    combine and the inverse zigzag of the generic route."""
+    shape = next(p for p in (lo, hi) if p.dim() == 3).shape
+    acc = torch.stack([p if p.dim() == 3 else p[:, None, None].expand(shape)
+                       for p in (lo, hi)], dim=3).contiguous()
+    elems = acc.view(torch.int16).view(shape)
+    return zigzag_decode(elems) if zigzag else elems

@@ -18,10 +18,15 @@ row-linear byte rows; then one of two routes, the JAX package's
 - **generic**: everything else that ``supported()`` accepts (1-, 2- and
   4-byte integers and bitcast floats, rANS/CONST/RAW planes in any mix,
   C or F order, spatial diff, first- or second-order time diff, flags
-  bit6 without the tail packing). The byte planes are reassembled and
-  combined and the inverse zigzag applied in plain torch; then K4 (fused
-  transpose + time scan) for F-order time-diff chunks without a spatial
-  diff, and otherwise the layout, spatial cumsum and K5 passes.
+  bit6 without the tail packing). 2-byte F-order time-diff chunks
+  without a spatial diff whose rANS planes sit in K1's rows as whole
+  channel-aligned segments (``Layout.plane_form``) go from K1 straight
+  into K4's plane form, which reads the byte planes in place, combines
+  them, undoes the zigzag, scans and transposes. For every other layout
+  the byte planes are reassembled and combined and the inverse zigzag
+  applied in plain torch; then K4's element form (fused transpose + time
+  scan) for F-order time-diff chunks without a spatial diff, and
+  otherwise the layout, spatial cumsum and K5 passes.
 
 K1 uses octet tables when every table of the batch is 8-aligned (what
 this codec's writer emits) and its coarse/fixup form otherwise. Unlike
@@ -66,6 +71,7 @@ from ..models import rans
 from ..models.rans import GROUP_ROWS, LANES, RANS_L
 from ..ops.device_delta import (cumsum_space, cumsum_time,
                                 cumsum_time_transposed,
+                                cumsum_time_transposed_planes,
                                 cumsum_time_transposed_u8,
                                 cumsum_time_transposed_u8_tail,
                                 diff_space, diff_time, zigzag_decode,
@@ -210,6 +216,19 @@ class Layout:
     def n_stream(self):
         return self.C * self.tp if self.aligned else self.Tc * self.C
 
+    @property
+    def plane_form(self):
+        """Whether K4's plane form decodes the batch: 2-byte elements of
+        F-order time-diff chunks without a spatial diff, whose rANS
+        planes lie in K1's rows as whole channel-aligned segments (no
+        bit6 sub-rows, a row exactly one segment), so that each plane is
+        a strided view of those rows."""
+        return (self.itemsize == 2 and self.order == 'F'
+                and self.do_time_diff and not self.do_spatial_diff
+                and self.aligned and self.tail_split == 1
+                and bool(self.planes(MODE_RANS))
+                and self.seg == self.S * LANES)
+
 
 def _decode_generic(states, words, lookup, dense_pk, counts, const_vals,
                     raw_vals, heads, *, lay):
@@ -221,8 +240,39 @@ def _decode_generic(states, words, lookup, dense_pk, counts, const_vals,
     else:
         syms = None
         used = torch.zeros((lay.B,), dtype=torch.int32, device=heads.device)
+    if lay.plane_form:
+        lo, hi = generic_planes(syms, const_vals, raw_vals, lay)
+        out = cumsum_time_transposed_planes(
+            lo, hi, heads if lay.has_head else None, n_samples=lay.T,
+            zigzag=lay.zigzag)
+        for _ in range(lay.diff_order - 1):
+            out = cumsum_time(out)
+        return out, used
     elems = generic_elems(syms, const_vals, raw_vals, lay)
     return generic_samples(elems, heads, lay), used
+
+
+def generic_planes(syms, const_vals, raw_vals, lay):
+    """The two byte planes of a ``lay.plane_form`` batch as K4's plane
+    form takes them, with no copy: a rANS plane is the (B, C, Tc) view of
+    K1's rows (plane j starts at row ``j * n_seg``, channel c at ``c *
+    tp`` within it; the ``tp - Tc`` pad bytes are never read), a RAW
+    plane the (B, C, Tc) view of its staged bytes, a CONST plane its (B,)
+    values."""
+    B, C, Tc, tp = lay.B, lay.C, lay.Tc, lay.tp
+    flat = None if syms is None else syms.view(B, -1)
+    planes = []
+    for p, mode in enumerate(lay.modes):
+        j = lay.planes(mode).index(p)
+        if mode == MODE_RANS:
+            start = j * lay.n_seg * lay.seg
+            planes.append(flat[:, start:start + C * tp].view(B, C, tp)
+                          [:, :, :Tc])
+        elif mode == MODE_RAW:
+            planes.append(raw_vals[:, j].view(B, C, Tc))
+        else:
+            planes.append(const_vals[:, j])
+    return planes
 
 
 def generic_elems(syms, const_vals, raw_vals, lay):
@@ -273,11 +323,13 @@ def _rans_planes(syms, lay):
 
 def generic_samples(elems, heads, lay):
     """(B, Tc*C) decoded elements + (B, C) heads -> the (B, T, C) samples
-    (bits): K4 for F-order time-diff chunks without a spatial diff (the
-    head seeds its exclusive scan in place of the JAX package's head
-    concatenation: same bytes), else layout, head row, spatial cumsum and
-    K5 passes. 1-byte data is widened to int16, scanned modulo 2^16 and
-    its low byte kept (mod 256 is a quotient of mod 2^16)."""
+    (bits), for the layouts K4's plane form does not take
+    (``Layout.plane_form``): K4's element form for F-order time-diff
+    chunks without a spatial diff (the head seeds its exclusive scan in
+    place of the JAX package's head concatenation: same bytes), else
+    layout, head row, spatial cumsum and K5 passes. 1-byte data is
+    widened to int16, scanned modulo 2^16 and its low byte kept (mod 256
+    is a quotient of mod 2^16)."""
     B, T, C, Tc = lay.B, lay.T, lay.C, lay.Tc
     one_byte = lay.itemsize == 1
 

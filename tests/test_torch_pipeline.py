@@ -196,7 +196,7 @@ def test_reader_entry_points(tmp_path_, monkeypatch, name):
         counts = mt.launch_counts()
         assert counts['host_fallback_chunks'] == 0
         # CPU decodes run the twins: no kernel launch is counted.
-        assert len(counts) == 14
+        assert len(counts) == 16
         assert not any(counts.values())
     finally:
         rp.close()

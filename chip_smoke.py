@@ -37,6 +37,10 @@ c. hold every kernel form against its plain PyTorch twin on the card,
    plane; run every form of K4 and K5 on the scan edge shapes
    (``SCAN_EDGE_CASES``: lengths around the time segments, channel
    counts around the tiles, strided and misaligned inputs, short and
+   head-extended outputs) and the finalize, K2 and K3, on its own
+   (``FINALIZE_EDGE_CASES``: tails of 1, 7 and 33 channels behind bulk
+   blocks that end off the warps and tiles, padded and unpadded rows,
+   either block off the 16-byte grid, extra rows, short and
    head-extended outputs) against their twins; run K1's three
    forms and K6 on the edge cases (``EDGE_CASES`` x ``REGION_ENDS``:
    1 step and K6's window counts around 16, steps reading close to 4096
@@ -67,7 +71,8 @@ i. time the staged decodes (the batch staged on the card once, CUDA
    files on both routes and by layer, each kernel form against its
    twin, its bound and, where one PyTorch call computes the same
    function, that call, and the scans alone at B=2 and B=32
-   (``SCAN_SHAPES``).
+   (``SCAN_SHAPES``), with K3 at B=32, and K2 over channel counts on
+   and off the 32-byte sector grid (``FINALIZE_CHANNELS``).
 
 The last four lines are a JSON summary of the end-to-end and staged
 timings (with the kernel forms no path launches, which are held
@@ -133,10 +138,10 @@ KERNELS = {
         'mtscomp_tpu_torch/csrc/rans_decode.cu',
         'mtscomp_tpu/ops/pallas_rans.py:163'),
     'finalize_u8, tail form (K3)': (
-        'finalize_u8_tail', 'mtscomp_tpu_torch/csrc/finalize_u8.cu',
+        'finalize_u8_tail', 'mtscomp_tpu_torch/csrc/scan_transposed.cu',
         'mtscomp_tpu/ops/device_delta.py:310'),
     'finalize_u8 (K2)': (
-        'finalize_u8', 'mtscomp_tpu_torch/csrc/finalize_u8.cu',
+        'finalize_u8', 'mtscomp_tpu_torch/csrc/scan_transposed.cu',
         'mtscomp_tpu/ops/device_delta.py:238'),
     'scan_transposed int16, head-seeded (K4)': (
         'scan_transposed_i16_seeded',
@@ -176,17 +181,22 @@ KERNELS = {
 #: ptxas entry-name fragments (all of them in the mangled name) -> the
 #: kernel it compiles. K4 and K5 are three passes: segment totals, their
 #: prefixes (one kernel, compiled into both sources), the seeded scan.
+#: The finalize is K4's kernels behind their finalize load stage: K2 with
+#: one channel block, K3 with a tail block.
 PTXAS_NAMES = (
     (('rans_decode_groups_kernelILi0E',), 'K1 octet'),
     (('rans_decode_groups_kernelILi1E',), 'K1 coarse 1'),
     (('rans_decode_groups_kernelILi2E',), 'K1 coarse 2'),
-    (('finalize_u8_kernel',), 'K2/K3'),
     (('scan_transposed_totals_kernel', 'ElemLoadIsE'), 'K4 i16 totals'),
     (('scan_transposed_totals_kernel', 'ElemLoadIiE'), 'K4 i32 totals'),
     (('scan_transposed_totals_kernel', 'PlaneLoad'), 'K4 planes totals'),
+    (('scan_transposed_totals_kernel', 'FinalizeLoadILb0E'), 'K2 totals'),
+    (('scan_transposed_totals_kernel', 'FinalizeLoadILb1E'), 'K3 totals'),
     (('scan_transposed_kernel', 'ElemLoadIsE'), 'K4 i16 scan'),
     (('scan_transposed_kernel', 'ElemLoadIiE'), 'K4 i32 scan'),
     (('scan_transposed_kernel', 'PlaneLoad'), 'K4 planes scan'),
+    (('scan_transposed_kernel', 'FinalizeLoadILb0E'), 'K2 scan'),
+    (('scan_transposed_kernel', 'FinalizeLoadILb1E'), 'K3 scan'),
     (('cumsum_time_totals_kernelIsE',), 'K5 i16 totals'),
     (('cumsum_time_totals_kernelIiE',), 'K5 i32 totals'),
     (('cumsum_time_scan_kernelIsE',), 'K5 i16 scan'),
@@ -239,6 +249,33 @@ SCAN_EDGE_CASES.update({
     for variant in ('channel_slice', 'off_grid', 'short_out', 'plus_one')})
 SCAN_EDGE_CASES['1x40000x3'] = (1, 40000, 3, 'plain')
 SCAN_EDGE_CASES['1x40000x3_off_grid'] = (1, 40000, 3, 'off_grid')
+
+#: Edge shapes of the finalize, K2 and K3 (phase c on the card, the port's
+#: CPU tests on the twins): name -> (B, CA, CB, T', variant): CA bulk and
+#: CB tail channels (0: K2, no tail block), T' coded steps a channel. The
+#: tails of 1, 7 and 33 channels sit behind bulk blocks that end on and
+#: off a warp (32) and the channel tile; T' around the 64-step segments.
+#: Variants: 'plain' feeds contiguous rows of T' bytes (off the 16-byte
+#: grid unless T' is on it), 'padded' rows padded to 128 as K1 leaves
+#: them with ``n_samples`` = T' + 1 (the path's form: 16-byte loads),
+#: 'bulk_off_grid' and 'tail_off_grid' padded rows with that block's base
+#: off the grid, 'short_out' fewer samples than steps, 'plus_one'
+#: unpadded rows and T' + 1 samples, 'extra_rows' blocks with more rows
+#: than heads (the bulk a channel slice of a wider tensor).
+FINALIZE_EDGE_CASES = {
+    '%dx%d+%dx%d_%s' % (1 + 2 * ((i + j) % 2), CA, CB, T, variant): (
+        1 + 2 * ((i + j) % 2), CA, CB, T, variant)
+    for i, T in enumerate((1, 63, 64, 65, 131))
+    for j, (CA, CB) in enumerate(((32, 1), (37, 7), (250, 33), (384, 1),
+                                  (33, 0), (385, 0)))
+    for variant in ('plain', 'padded')}
+FINALIZE_EDGE_CASES.update({
+    '%dx%d+%dx%d_%s' % (B, CA, CB, T, variant): (B, CA, CB, T, variant)
+    for B, CA, CB, T in ((3, 37, 7, 131), (1, 384, 1, 65), (2, 250, 33, 64),
+                         (3, 33, 0, 131))
+    for variant in ('bulk_off_grid', 'tail_off_grid', 'short_out',
+                    'plus_one', 'extra_rows')
+    if CB or variant != 'tail_off_grid'})
 
 #: Recordings: name -> (signal, seconds, channels, dtype, seed, compress
 #: options, foreign writer's minimum frequency or None, expected
@@ -613,6 +650,43 @@ def scan_edge_calls(name, device):
     return calls
 
 
+def finalize_edge_call(name, device):
+    """One of ``FINALIZE_EDGE_CASES`` as a call of the finalize:
+    ``(kernel, twin, args, kwargs)`` with seeded tensors on ``device``
+    (bytes and heads over their whole range; ``hi`` uint8 or int32 by
+    turns). K2 for a case without tail channels, else K3. The port's CPU
+    tests import it from here."""
+    B, CA, CB, T, variant = FINALIZE_EDGE_CASES[name]
+    index = list(FINALIZE_EDGE_CASES).index(name)
+    rng = np.random.default_rng(300 + index)
+    width = T if variant in ('plain', 'plus_one') else -(-T // LANES) * LANES
+    extra = 3 if variant == 'extra_rows' else 0
+
+    def block(n_rows, how):
+        return edge_tensor(rng.integers(
+            0, 255, size=(B, n_rows, width), endpoint=True,
+            dtype=np.int64).astype(np.uint8), how, device)
+
+    head = torch.from_numpy(rng.integers(
+        -32768, 32767, size=(B, CA + CB), endpoint=True,
+        dtype=np.int64).astype(np.int16)).to(device)
+    hi = torch.from_numpy(rng.integers(0, 255, size=B, endpoint=True)).to(
+        device, torch.int32 if index % 2 else torch.uint8)
+    kwargs = {'n_samples': {'plain': None,
+                            'short_out': max(T - 3, 0)}.get(variant, T + 1)}
+    how = 'off_grid' if variant == 'bulk_off_grid' else 'plain'
+    if not CB:
+        return (dd.cumsum_time_transposed_u8,
+                dd.cumsum_time_transposed_u8_ref,
+                (block(CA + extra, how), head, hi), kwargs)
+    bulk = block(CA, 'channel_slice' if extra else how)
+    tail = block(CB + extra,
+                 'off_grid' if variant == 'tail_off_grid' else 'plain')
+    return (dd.cumsum_time_transposed_u8_tail,
+            dd.cumsum_time_transposed_u8_tail_ref,
+            (bulk, tail, head[:, :CA], head[:, CA:], hi), kwargs)
+
+
 def to_dtype(walk, dtype):
     """Integer samples in ``dtype``, wrapping like the codec's modular
     arithmetic; int32 is scaled x1001 (wide values, all four planes in
@@ -896,12 +970,14 @@ def check_kernels(recs):
                 f_args = (bulk, tail_block, heads[:, :cA], heads[:, cA:], hi)
             out = record(key, kernel, twin, f_args, {'n_samples': SR})
             done.append(key)
-            if tail_block is None:
-                # The finalize is the plane form with a CONST high plane.
-                C = heads.shape[1]
-                check_plane_form(held, (bulk[:, :C, :SR - 1], hi), heads,
-                                 True, out)
-                done.append('K4 plane form (CONST high plane) = K2')
+            # The finalize is the plane form with a CONST high plane (its
+            # two channel blocks joined here): two load stages, one result.
+            C = heads.shape[1]
+            lo = bulk[:, :C] if tail_block is None else torch.cat(
+                [bulk, tail_block[:, :C - bulk.shape[1]]], dim=1)
+            check_plane_form(held, (lo[:, :, :SR - 1], hi), heads, True, out)
+            done.append('K4 plane form (CONST high plane) = %s'
+                        % key.split('(')[1][:2])
         else:
             lay = kw['lay']
             elems = generic_elems(syms, const_vals, raw_vals, lay)
@@ -991,6 +1067,24 @@ def check_scan_edge_cases():
         '16-byte grid, short and head-extended outputs): %d calls of K4 '
         '(element and plane forms) and K5 equal their twins'
         % (len(SCAN_EDGE_CASES), n))
+
+
+def check_finalize_edge_cases():
+    """Phase c, edge shapes of the finalize: K2 or K3 on every one of
+    ``FINALIZE_EDGE_CASES``, against its twin (byte equality)."""
+    for case in FINALIZE_EDGE_CASES:
+        kernel, twin, args, kwargs = finalize_edge_call(case, DEVICE)
+        try:
+            compare(kernel, twin, args, kwargs)
+        except RuntimeError as e:
+            raise RuntimeError('finalize edge case %s: %s' % (case, e)) from e
+    n_tail = sum(1 for c in FINALIZE_EDGE_CASES.values() if c[2])
+    log('c. %d finalize edge shapes (T\' 1 to 131; tails of 1, 7 and 33 '
+        'channels behind 32, 37, 250 and 384 bulk channels; padded and '
+        'unpadded rows, either block off the 16-byte grid, extra rows, '
+        'short and head-extended outputs): %d calls of K3 and %d of K2 '
+        'equal their twins' % (len(FINALIZE_EDGE_CASES), n_tail,
+                               len(FINALIZE_EDGE_CASES) - n_tail))
 
 
 def check_edge_cases():
@@ -1439,17 +1533,54 @@ def time_kernels(calls, counts_by_path):
 
 
 #: Phase i, the scans alone beside their staged B=8 calls: K5 at B=2, the
-#: batch its paths launch, and every int16 form at B=32 (a whole 32-s
-#: file in one batch); (kernel form, chunks).
+#: batch its paths launch, and every int16 form and the finalize at B=32
+#: (a whole 32-s file in one batch); (kernel form, chunks).
 SCAN_SHAPES = (('cumsum_time int16 (K5)', 2), ('cumsum_time int32 (K5)', 2),
                ('cumsum_time int16 (K5)', 32),
                ('scan_transposed int16, head-seeded (K4)', 32),
-               ('scan_transposed planes int16, head-seeded (K4)', 32))
+               ('scan_transposed planes int16, head-seeded (K4)', 32),
+               ('finalize_u8, tail form (K3)', 32))
+
+
+#: Phase i, the finalize against the output row's length: channel counts
+#: whose (B, T, C) int16 rows are on (384, 400: 768 and 800 bytes) and off
+#: (385, 386) the 32-byte sector grid of device memory.
+FINALIZE_CHANNELS = (384, 385, 386, 400)
+
+
+def time_finalize_channels():
+    """Phase i: K2 at B=8 on seeded random bytes, 30,000 steps, over
+    ``FINALIZE_CHANNELS``: each held against its twin, then timed against
+    its bound (what the store runs of rows off the sector grid cost)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    out = []
+    for C in FINALIZE_CHANNELS:
+        args = (torch.randint(0, 256, (BATCH, C, SR + 80), dtype=torch.uint8,
+                              device=DEVICE, generator=gen),
+                torch.randint(-32768, 32768, (BATCH, C), dtype=torch.int16,
+                              device=DEVICE, generator=gen),
+                torch.randint(0, 256, (BATCH,), dtype=torch.uint8,
+                              device=DEVICE, generator=gen))
+        kwargs = {'n_samples': SR}
+        _err, got = compare(dd.cumsum_time_transposed_u8,
+                            dd.cumsum_time_transposed_u8_ref, args, kwargs)
+        nbytes, ops = work('finalize_u8', args, got)
+        del got
+        ms = cuda_ms(lambda: dd.cumsum_time_transposed_u8(*args, **kwargs),
+                     REPS)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S)
+        out.append({'channels': C, 'row_bytes': 2 * C, 'batch_chunks': BATCH,
+                    'ms': ms, 'bound_ms': bound, 'max_abs_err': 0})
+        log('i. finalize_u8 (K2) at %d channels (rows of %d bytes), B=%d, '
+            'random bytes: %.4f ms, bound %.4f ms, equal to its twin'
+            % (C, 2 * C, BATCH, ms, bound))
+    return out
 
 
 def time_scan_shapes():
-    """Phase i: K4 and K5 on seeded random elements of ``SCAN_SHAPES`` at
-    385 channels x 30,000 steps: each held against its twin, then timed
+    """Phase i: K3, K4 and K5 on seeded random elements of ``SCAN_SHAPES``
+    at 385 channels x 30,000 steps: each held against its twin, then timed
     against its bound."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
@@ -1466,6 +1597,15 @@ def time_scan_shapes():
         if key.startswith('cumsum_time'):
             kernel, twin = dd.cumsum_time, dd.cumsum_time_ref
             args, kwargs = (rand((B, SR, 385), dtype),), {}
+        elif key.startswith('finalize'):
+            kernel = dd.cumsum_time_transposed_u8_tail
+            twin = dd.cumsum_time_transposed_u8_tail_ref
+            # 384 bulk channels and the one tail channel, rows 128-padded.
+            args = (rand((B, 384, SR + 80), torch.uint8),
+                    rand((B, 1, SR + 80), torch.uint8),
+                    rand((B, 384), dtype), rand((B, 1), dtype),
+                    rand((B,), torch.uint8))
+            kwargs = {'n_samples': SR}
         elif key.startswith('scan_planes'):
             kernel = dd.cumsum_time_transposed_planes
             twin = dd.cumsum_time_transposed_planes_ref
@@ -1517,6 +1657,10 @@ def main():
             385, dd.scan_transposed_geometry(385, size)[1])
         smem['K5 ' + width] = lib.mts_cumsum_time_smem_bytes(
             385, *dd.cumsum_time_geometry(385, size), size)
+    # The finalize runs K4's int16 scan: K2 at 384 channels, K3 at 385.
+    smem['K2 scan, 384 ch'] = lib.mts_scan_transposed_smem_bytes(
+        384, dd.scan_transposed_geometry(384, 2)[1])
+    smem['K3 scan, 385 ch'] = smem['K4 i16 scan']
     log('b. dynamic shared memory a block (bytes): %s' % json.dumps(smem))
     # The host codec's C++ runtime builds at first use: before any timing.
     t0 = time.perf_counter()
@@ -1531,6 +1675,7 @@ def main():
         calls, staged = check_kernels(recs)
         check_edge_cases()
         check_scan_edge_cases()
+        check_finalize_edge_cases()
         encoded = check_encode_kernel(recs)
         enc, x, args, err = encoded['spiky_int16_385ch']
         calls['rans_encode_groups (K6)'] = (
@@ -1554,6 +1699,7 @@ def main():
         kernels, off_path = time_kernels(calls, counts_by_path)
         del calls
         scan_shapes = time_scan_shapes()
+        finalize_channels = time_finalize_channels()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1569,6 +1715,7 @@ def main():
                             'staged_encode': staged_encode,
                             'encode_layers_s': enc_layers,
                             'scan_shapes': scan_shapes,
+                            'finalize_channels': finalize_channels,
                             'held_against_twin_only': off_path})))
     log(json.dumps({'kernels': kernels}))
     log(card)

@@ -16,14 +16,17 @@ FORMAT_VERSION = '1.0'
 FORMAT_VERSION_ANS = '2.0'
 
 from .api import Reader, Writer, check, compress, decompress  # noqa: E402
+from .config import read_config, write_config  # noqa: E402
 from .device import resolve_device  # noqa: E402
 from .ops import device_delta, rans_decode, rans_encode  # noqa: E402
 from .parallel import pipeline  # noqa: E402
+from .utils.misc import add_default_handler  # noqa: E402
 from .parallel.pipeline import (DeviceBatchDecoder,  # noqa: E402
                                 DeviceBatchEncoder, decompress_to_array,
                                 decompress_to_tensor)
 
 __all__ = ('Writer', 'Reader', 'compress', 'decompress', 'check',
+           'read_config', 'write_config', 'add_default_handler',
            'resolve_device', 'DeviceBatchDecoder', 'DeviceBatchEncoder',
            'decompress_to_array', 'decompress_to_tensor', 'launch_counts',
            'reset_launch_counts')

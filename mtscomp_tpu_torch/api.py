@@ -32,7 +32,7 @@ import numpy as np
 
 from .codec import get_codec
 from .config import read_config, CHECK_ATOL, CRITICAL_ERROR_MSG
-from .device import resolve_device
+from .device import configured_device
 from .format import (build_cmeta, compute_chunk_bounds, read_cmeta,
                      write_cmeta, cmeta_sidecar_path)
 from .io_host import load_raw_data, pread_exact, default_compressed_paths
@@ -41,12 +41,6 @@ from .parallel import pipeline
 from .parallel.pipeline import (DeviceBatchEncoder, MIN_DEVICE_SUBBATCH,
                                 decompress_to_array, decompress_to_tensor)
 from .utils.misc import Bunch, clip, logger, progress
-
-
-def _device_of(config):
-    """The configured ``device`` as a ``torch.device``, or None for
-    ``'none'`` (the host codec)."""
-    return None if config.device == 'none' else resolve_device(config.device)
 
 
 # Host slice reads spanning at least this many chunks — and more than
@@ -162,8 +156,8 @@ class Writer:
             self.algorithm, seg_log2=config.get('ans_seg_log2', 16),
             channel_aligned=config.get('ans_channel_segments', True),
             table_mode=config.get('ans_table_mode', 'segment'))
-        self.device = _device_of(config) if self.algorithm == 'ans' \
-            else None
+        self.device = configured_device(config.device) \
+            if self.algorithm == 'ans' else None
         self.data = None
         self._pool = None
 
@@ -693,7 +687,8 @@ class Reader:
         self.config = read_config(**kwargs)
         self.cache_size = self.config.cache_size
         self.check_after_decompress = self.config.check_after_decompress
-        self.device = _device_of(self.config)
+        #: Set by :meth:`open`, once the file's algorithm is known.
+        self.device = None
         self._chunk_decode_threads = max(1, int(self.config.n_threads))
 
     def open(self, cdata, cmeta=None):
@@ -708,6 +703,11 @@ class Reader:
         self.chunk_bounds = self.cmeta.chunk_bounds
         self.chunk_order = self.cmeta.get('chunk_order', 'F')
         self.algorithm = self.cmeta.get('algorithm', 'zlib')
+        # Only ans files decode on a device: a zlib file opens and decodes
+        # on a host without a GPU whatever the configured device is, as it
+        # compresses there (Writer).
+        self.device = configured_device(self.config.device) \
+            if self.algorithm == 'ans' else None
         # Sidecar flag written by v2 float compressions: chunk payloads
         # hold the same-width integer view of the IEEE bit patterns
         # (exact modular transform). Only meaningful for float dtypes;
@@ -1067,17 +1067,19 @@ class Reader:
         # position in the decoded unique set.
         return out[:, np.searchsorted(uniq, sel)]
 
-    def to_array(self, first_chunk=0, last_chunk=None):
-        """Bulk-decode chunks [first, last] into one fresh ndarray.
+    def to_array(self, first_chunk=0, last_chunk=None, writable=True):
+        """Bulk-decode chunks [first, last] into one ndarray.
 
         Ans files decode through the port's batched decode on the
         reader's device (:func:`~.parallel.pipeline.decompress_to_array`),
         other files, and ``device='none'``, on the host codec.
+        ``writable=False`` lets read-only consumers (``tofile``) take the
+        device route's fetched buffer as it comes, with no copy.
         """
         last_chunk = self.n_chunks - 1 if last_chunk is None else last_chunk
         if self._use_device():
             return decompress_to_array(self, first_chunk, last_chunk,
-                                       device=self.device)
+                                       writable=writable, device=self.device)
         ids = range(first_chunk, last_chunk + 1)
         if hasattr(self.codec, 'decode_batch'):
             # Native batch decode (and no LRU traffic — bulk reads
@@ -1092,11 +1094,15 @@ class Reader:
     def to_tensor(self, first_chunk=0, last_chunk=None):
         """Chunks [first, last] as one (n, C) tensor on the reader's
         device, in the reader's dtype; nothing is copied to the host."""
-        if self.device is None:
+        # A zlib file's reader holds no device: resolve it now.
+        device = self.device if self.algorithm == 'ans' \
+            else configured_device(self.config.device)
+        if device is None:
             raise ValueError("to_tensor needs a device ('cuda' or 'cpu'); "
-                             "this reader was opened with device='none'.")
+                             "this reader's configuration gives none "
+                             "(device=%r)." % self.config.device)
         return decompress_to_tensor(self, first_chunk, last_chunk,
-                                    device=self.device)
+                                    device=device)
 
     def tofile(self, out, overwrite=False):
         """Decompress everything to a flat binary file (batched, threaded)."""
@@ -1126,7 +1132,7 @@ class Reader:
             first = batch_size * batch
             last = min(batch_size * (batch + 1), self.n_chunks)
             if use_device:
-                return [self.to_array(first, last - 1)]
+                return [self.to_array(first, last - 1, writable=False)]
             if hasattr(self.codec, 'decode_batch'):
                 decoded = self._decompress_chunks_batch(range(first, last))
             else:

@@ -5,7 +5,9 @@ Parity: reproduces the reference's config system (mtscomp.py:46-57,
 flags that were not passed fall through to file defaults — and extends it
 with the ans format's keys and the port's device (``'cuda'`` runs the
 hand-written kernels, ``'cpu'`` their plain PyTorch twins, ``'none'``
-the host codec).
+the host codec; ``'auto'``, the value a config file written for the JAX
+package may hold, means ``'cuda'`` where a GPU is visible, else
+``'none'``).
 
 The user file is ``~/.mtscomp`` so that defaults configured for the
 reference library apply here unchanged (drop-in behavior).
@@ -43,8 +45,11 @@ DEFAULT_CONFIG = (
     ('do_time_diff', True),
     ('n_threads', multiprocessing.cpu_count()),
     # --- ans (v2) and device extensions ---
-    ('device', 'cuda'),             # 'cuda' (kernels) | 'cpu' (their twins)
-                                    # | 'none' (host codec only)
+    ('device', 'cuda'),             # 'cuda' (kernels; raises without a GPU)
+                                    # | 'cpu' (their twins) | 'none' (host
+                                    # codec only) | 'auto' ('cuda' if a GPU
+                                    # is visible, else 'none'); 'cuda:N'
+                                    # picks a card. Only ans files use it.
     ('ans_seg_log2', 16),           # log2 symbols per rANS segment (128 lanes each)
     ('ans_channel_segments', True),  # channel-aligned segments (TPU fast layout)
     ('ans_table_mode', 'segment'),  # 'segment' (default: clustered per-segment
@@ -97,3 +102,12 @@ def read_config(**kwargs):
     for source in (user, kwargs):
         params.update({k: v for k, v in source.items() if v is not None})
     return Bunch(params)
+
+
+def write_config(**kwargs):
+    """Persist the merged configuration to the user config file."""
+    config = read_config(**kwargs)
+    CONFIG_PATH.parent.mkdir(exist_ok=True, parents=True)
+    with CONFIG_PATH.open('w') as f:
+        json.dump(config, f, indent=2, sort_keys=True)
+    return config

@@ -1,7 +1,10 @@
-// K4: transpose + time scan of channel-major integers for Hopper (sm_90a).
+// K4, K2 and K3: transpose + time scan of channel-major integers for
+// Hopper (sm_90a), one kernel family.
 //
-// Replaces the Pallas TPU kernel mtscomp_tpu/ops/device_delta.py::
-// _cumsum_t_kernel (entry cumsum_time_transposed). Input: (B, C, T_in)
+// Replaces the Pallas TPU kernels mtscomp_tpu/ops/device_delta.py::
+// _cumsum_t_kernel (K4, entry cumsum_time_transposed), _cumsum_t8_kernel
+// (K2, entry cumsum_time_transposed_u8) and _cumsum_t8_tail_kernel (K3,
+// entry cumsum_time_transposed_u8_tail). Input: (B, C, T_in)
 // int16 or int32 elements, one row per channel (an F-order chunk's
 // diffs); output: the (B, T, C) time-integrated samples,
 //   inclusive:  out[b, t, c] = sum_{i <= t} in[b, c, i]
@@ -11,7 +14,7 @@
 // pass. The output is written at its final shape for any T and C: no
 // 128-padding of time or channels, no trim pass.
 //
-// Two load stages feed the same kernel bodies:
+// Three load stages feed the same kernel bodies:
 //   element form  reads the elements themselves;
 //   plane form    (2-byte elements) reads the element's two byte planes,
 //                 each a u8 (B, C, T_in) tensor with free batch and
@@ -22,6 +25,17 @@
 //                 (constant high byte) extended to two coded planes: the
 //                 generic decode of 2-byte data needs no torch pass
 //                 between K1 and this kernel.
+//   finalize form (K2, K3: the fuse8 decode) is the plane form with a
+//                 CONST high plane, the zigzag and a head, and the low
+//                 plane in up to two channel blocks: channel c < ca reads
+//                 the bulk block (K1's rows in place), the others the
+//                 tail block (K3: the 385th channel's ragged tail,
+//                 gathered apart). The TPU needed a second kernel for
+//                 the tail because a second HBM buffer cannot be merged
+//                 cheaply inside a TPU tile; here it is a second pointer
+//                 chosen per channel row, a template parameter so that
+//                 K2 pays nothing for it. The high plane costs no memory
+//                 read and no registers for its bytes.
 //
 // The TPU computed each 128 x 128 tile's prefix with byte-split matmuls
 // and carried the sums across a sequential grid axis. Here blocks run in
@@ -43,7 +57,9 @@
 // What bounds it on the H100: bytes. The passes read the input twice and
 // write the output once against the bound's one read and one write;
 // B x ceil(T / 64) x ceil(C / c_tile) blocks (7,504 for 8 chunks of
-// 30,000 x 385 int16) keep every SM busy at any batch.
+// 30,000 x 385 int16) keep every SM busy at any batch. The stores are
+// runs of 64 bytes a warp: output rows off the 32-byte sector grid (385
+// channels: 770 bytes) cost about a third more time than rows on it.
 
 #include <algorithm>
 
@@ -143,6 +159,62 @@ struct PlaneLoad {
     for (int i = 0; i < 4; ++i) {
       w[2 * i] = pair(__byte_perm(lw[i], hw[i], 0x5140));      // l0 h0 l1 h1
       w[2 * i + 1] = pair(__byte_perm(lw[i], hw[i], 0x7362));  // l2 h2 l3 h3
+    }
+  }
+};
+
+// One channel block of a byte plane: rows (B, channels, T_in) u8 with time
+// stride 1 and free batch and channel strides, in bytes.
+struct Rows {
+  const uint8_t* p;
+  long long bstride, cstride;
+};
+
+// Load stage of the finalize form: int16 elements from the low plane's
+// rows, in one or (kTail) two channel blocks, under one high byte a chunk;
+// always zigzagged. The 16-step loads need every row of both blocks on
+// the 16-byte grid (K1's rows are, and a freshly gathered tail block).
+template <bool kTail>
+struct FinalizeLoad {
+  static constexpr bool kVector = true;
+  static constexpr int kSegSteps = kSteps<int16_t>;
+  static constexpr int kRowsAhead = 8;     // for rows off the 16-byte grid
+
+  Rows bulk, tail;                         // channels [0, ca) and [ca, C)
+  int ca;
+  const uint8_t* hi;                       // (B,) the chunks' high bytes
+  uint32_t hi4;                            // bound: the byte, four times
+
+  __device__ __forceinline__ void bind(int b) {
+    bulk.p += b * bulk.bstride;
+    if (kTail) tail.p += b * tail.bstride;
+    hi4 = hi[b] * 0x01010101u;
+  }
+  __device__ __forceinline__ const uint8_t* row(int c) const {
+    if (kTail && c >= ca) return tail.p + (c - ca) * tail.cstride;
+    return bulk.p + c * bulk.cstride;
+  }
+  __device__ __forceinline__ uint32_t operator()(int c, int t) const {
+    const uint32_t z = row(c)[t] | (hi4 & 0xff00u);   // unsigned 16 bits
+    const uint32_t d = ((z >> 1) ^ (0u - (z & 1u))) & 0xffffu;
+    return widen(static_cast<int16_t>(static_cast<uint16_t>(d)));
+  }
+  // The low plane's 16 bytes for steps [t, t + 16) of channel c; the high
+  // plane takes no load (h stays unused).
+  __device__ __forceinline__ void load16(int c, int t, uint4& l,
+                                         uint4&) const {
+    l = *reinterpret_cast<const uint4*>(row(c) + t);
+  }
+  // load16's bytes -> 8 words of two decoded int16 elements, in step order.
+  __device__ __forceinline__ void decode16(const uint4& l, const uint4&,
+                                           uint32_t* w) const {
+    const uint32_t lw[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // l0 h l1 h, then l2 h l3 h: combined, unzigzagged in each half.
+      const uint32_t z2 =
+          __byte_perm(lw[i >> 1], hi4, (i & 1) ? 0x7362 : 0x5140);
+      w[i] = ((z2 >> 1) & 0x7fff7fffu) ^ ((z2 & 0x00010001u) * 0xffffu);
     }
   }
 };
@@ -490,6 +562,51 @@ extern "C" int mts_scan_transposed_planes(
           on_grid(hi_rows, hi_bstride, hi_cstride),
       head, out, scratch, n_batch, C, T_out, t_in, n_steps, c_tile,
       static_cast<cudaStream_t>(stream)));
+}
+
+// Finalize form (K2, K3): int16 elements lo | hi[b] << 8 from the low
+// plane's rows and one high byte a chunk, the inverse zigzag, then the
+// exclusive scan seeded by head (B, C) int16. bulk holds the rows of
+// channels [0, ca), tail (null: none, ca = C) those of [ca, C); each a
+// (B, channels, T_in) u8 block with strides in bytes and time stride 1.
+// Rows off the 16-byte grid (a base or a stride of either block) only
+// slow it: the loads are then one byte a lane. out, scratch, n_steps and
+// c_tile as for the element form.
+extern "C" int mts_finalize_u8(int device, const void* bulk,
+                               long long bulk_bstride, long long bulk_cstride,
+                               int ca, const void* tail,
+                               long long tail_bstride, long long tail_cstride,
+                               const void* head, const void* hi, void* out,
+                               void* scratch, int n_batch, int C, int T_out,
+                               int t_in, int n_steps, int c_tile,
+                               void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // No coded step (t_in = 0: the heads alone) reads no row.
+  if ((bulk == nullptr && t_in > 0) || head == nullptr || hi == nullptr ||
+      (tail != nullptr && (ca < 0 || ca > C))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Rows b{static_cast<const uint8_t*>(bulk), bulk_bstride, bulk_cstride};
+  const Rows t{static_cast<const uint8_t*>(tail), tail_bstride, tail_cstride};
+  const auto on_grid = [](const Rows& r) {
+    return r.p == nullptr ||
+           ((reinterpret_cast<uintptr_t>(r.p) | r.bstride | r.cstride) &
+            15) == 0;
+  };
+  const bool aligned16 = on_grid(b) && on_grid(t);
+  const uint8_t* his = static_cast<const uint8_t*>(hi);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tail != nullptr) {
+    e = launch<int16_t>(FinalizeLoad<true>{b, t, ca, his, 0u}, aligned16,
+                        head, out, scratch, n_batch, C, T_out, t_in, n_steps,
+                        c_tile, st);
+  } else {
+    e = launch<int16_t>(FinalizeLoad<false>{b, t, C, his, 0u}, aligned16,
+                        head, out, scratch, n_batch, C, T_out, t_in, n_steps,
+                        c_tile, st);
+  }
+  return static_cast<int>(e);
 }
 
 // Dynamic shared memory of a pass C block, in bytes (for reports).

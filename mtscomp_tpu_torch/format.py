@@ -24,6 +24,37 @@ from . import FORMAT_VERSION, FORMAT_VERSION_ANS
 from .utils.misc import Bunch
 
 
+# Every sidecar key that changes how payload bytes map to decoded
+# samples: two files may only share decode state when their identities
+# are equal. Any new decode-semantic sidecar extension must be added here
+# (v2 extensions are absent from old sidecars: absent key = default).
+# ``ans_seg_log2``/``ans_table_mode`` are not identity: every chunk
+# payload is self-describing (codec/ans.py container header), the
+# sidecar copies are encode defaults only.
+DECODE_IDENTITY_KEYS = (
+    'algorithm', 'dtype', 'n_channels', 'chunk_order',
+    'do_time_diff', 'do_spatial_diff', 'time_diff_order', 'float_bitcast')
+
+
+def decode_identity(cmeta):
+    """Normalized decode-identity mapping of a sidecar dict/Bunch.
+
+    Values are normalized (bool flags, int order, canonical dtype
+    string; absent v2 extension keys get their defaults) so files
+    written by different library versions compare correctly.
+    """
+    return {
+        'algorithm': cmeta.get('algorithm'),
+        'dtype': str(np.dtype(cmeta.get('dtype'))),
+        'n_channels': int(cmeta.get('n_channels')),
+        'chunk_order': cmeta.get('chunk_order', 'F'),
+        'do_time_diff': bool(cmeta.get('do_time_diff', True)),
+        'do_spatial_diff': bool(cmeta.get('do_spatial_diff', False)),
+        'time_diff_order': int(cmeta.get('time_diff_order') or 1),
+        'float_bitcast': bool(cmeta.get('float_bitcast', False)),
+    }
+
+
 def compute_chunk_bounds(n_samples, sample_rate, chunk_duration):
     """Sample offsets delimiting fixed-duration chunks.
 

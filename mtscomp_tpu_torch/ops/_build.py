@@ -108,17 +108,17 @@ def _declare(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mts_rans_decode_groups.argtypes = [
         i, p, p, p, p, p, p, p, p, i, i, i, i]
-    lib.mts_finalize_u8.argtypes = [
-        i, p, ll, i, i, p, ll, i, p, p, p, i, i, i, i, p]
     lib.mts_scan_transposed.argtypes = [
         i, p, ll, ll, p, p, p, i, i, i, i, i, i, i, p]
     lib.mts_scan_transposed_planes.argtypes = [
         i, p, ll, ll, p, p, ll, ll, p, i, p, p, p, i, i, i, i, i, i, p]
+    lib.mts_finalize_u8.argtypes = [
+        i, p, ll, ll, i, p, ll, ll, p, p, p, p, i, i, i, i, i, i, p]
     lib.mts_cumsum_time.argtypes = [i, p, p, p, i, i, i, i, i, i, p]
     lib.mts_rans_encode_groups.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
                                            ll]
-    for fn in (lib.mts_rans_decode_groups, lib.mts_finalize_u8,
-               lib.mts_scan_transposed, lib.mts_scan_transposed_planes,
+    for fn in (lib.mts_rans_decode_groups, lib.mts_scan_transposed,
+               lib.mts_scan_transposed_planes, lib.mts_finalize_u8,
                lib.mts_cumsum_time,
                lib.mts_rans_encode_groups):
         fn.restype = i

@@ -6,18 +6,20 @@ Kernels (each entry point launches its CUDA kernel for CUDA tensors and
 runs its plain PyTorch twin, ``*_ref``, for CPU tensors; nothing else
 selects between them):
 
-- K2 + K3, the fused finalize of the fuse8 decode:
-  ``cumsum_time_transposed_u8`` and ``cumsum_time_transposed_u8_tail``
-  keep the JAX names and reach ONE CUDA kernel (``csrc/finalize_u8.cu``):
-  on the card the ragged tail is just a second input pointer, so the
-  TPU's two kernels become one.
-- K4 (``csrc/scan_transposed.cu``), the generic route's transpose + time
-  scan, in two forms that share the kernel bodies:
+- K4 (``csrc/scan_transposed.cu``), the transpose + time scan, in forms
+  that share the kernel bodies and differ in their load stage:
   ``cumsum_time_transposed`` scans int16/int32 elements, and
   ``cumsum_time_transposed_planes`` reads a 2-byte element's two byte
   planes itself (K1's rows or a RAW plane viewed in place, or a CONST
   plane's value per chunk), combines them and undoes the zigzag on the
   way in, so that no torch pass runs between K1 and the scan.
+- K2 + K3, the fused finalize of the fuse8 decode:
+  ``cumsum_time_transposed_u8`` and ``cumsum_time_transposed_u8_tail``
+  keep the JAX names and are a third load stage of the same kernels: the
+  plane form with a CONST high plane (no memory read for it), the zigzag
+  and a head, the low plane in one channel block or two. On the card
+  K3's ragged tail is just a second pointer, chosen per channel row, so
+  one transposed-scan kernel family serves the TPU's three kernels.
 - K5, ``cumsum_time`` (``csrc/cumsum_time.cu``): the carried time cumsum
   of time-major int16/int32 samples.
 
@@ -47,8 +49,8 @@ import torch
 from . import _build
 
 #: Kernel launches in this process, by kernel form (CUDA calls only; the
-#: twins never count): the finalize through
-#: :func:`cumsum_time_transposed_u8` and its tail form through
+#: twins never count): the finalize (K2) through
+#: :func:`cumsum_time_transposed_u8` and its tail form (K3) through
 #: :func:`cumsum_time_transposed_u8_tail`; K4 through
 #: :func:`cumsum_time_transposed` by element type and mode (seeded by a
 #: head, or inclusive) and its plane form through
@@ -79,6 +81,11 @@ def cumsum_time_transposed_u8(planes, head, hi, n_samples=None):
     verbatim first samples, with C <= C' (extra rows are ignored).
     Output sample t is ``head + sum(unzigzag(planes[..., :t]))`` modulo
     2^16, for t < T = ``n_samples`` (default T'; at most T' + 1).
+
+    The CUDA kernel needs time stride 1 and nothing else of the rows.
+    Rows off the 16-byte grid (a base, batch stride or channel stride;
+    K1's rows and a gathered tail block are on it) only slow it: it then
+    loads one byte a lane instead of 16.
     """
     return _finalize(planes, None, head, hi, n_samples)
 
@@ -151,35 +158,46 @@ def _finalize(planes, tail, head, hi, n_samples):
     return _launch(planes, tail, head, hi, T)
 
 
+def _finalize_blocks(planes, tail, C, T):
+    """The low plane's channel blocks as the kernel reads them: ``(bulk,
+    tail block or None)``, views over the ``T - 1`` coded steps of the
+    ``C`` head channels. An empty block drops out."""
+    n_coded = max(T - 1, 0)
+    if tail is None:
+        return planes[:, :C, :n_coded], None
+    bulk = planes[:, :, :n_coded]
+    tail = tail[:, :C - planes.shape[1], :n_coded]
+    if bulk.shape[1] == 0 or tail.shape[1] == 0:
+        return (tail if bulk.shape[1] == 0 else bulk), None
+    return bulk, tail
+
+
 def _launch(planes, tail, head, hi, T):
+    """The finalize on the card: K4's kernels behind the finalize load
+    stage (``mts_finalize_u8`` in ``csrc/scan_transposed.cu``)."""
     if planes.device.type != 'cuda':
         raise ValueError("the finalize runs on CUDA or CPU tensors, not %s"
                          % planes.device)
-    t_in = planes.shape[2]
     for name, t in (('planes', planes), ('tail', tail)):
-        # The kernel reads rows as aligned 4-byte words.
-        if t is not None and (t.stride(2) != 1 or t_in % 4
-                              or t.stride(0) % 4 or t.stride(1) % 4
-                              or t.data_ptr() % 4):
-            raise ValueError("%s rows must be time-contiguous with 4-byte "
-                             "aligned rows and a time length divisible "
-                             "by 4" % name)
+        if t is not None and t.stride(2) != 1 and t.shape[2] > 1:
+            raise ValueError("%s rows must be time-contiguous" % name)
     B, C = head.shape
     head = head.contiguous()
-    hi = hi.to(torch.int32).contiguous()
+    hi = hi.to(torch.uint8).contiguous()
     out = torch.empty((B, T, C), dtype=torch.int16, device=planes.device)
     if out.numel() == 0:
         return out
-    ca = C if tail is None else planes.shape[1]
+    bulk, tail_block = _finalize_blocks(planes, tail, C, T)
+    n_steps, c_tile = scan_transposed_geometry(C, 2)
+    scratch = _scratch(B, T, n_steps, C, planes.device)
     lib = _build.library()
     rc = lib.mts_finalize_u8(
-        planes.device.index, planes.data_ptr(), planes.stride(0),
-        planes.stride(1), ca,
-        None if tail is None else tail.data_ptr(),
-        0 if tail is None else tail.stride(0),
-        0 if tail is None else tail.stride(1),
-        head.data_ptr(), hi.data_ptr(), out.data_ptr(), B, C, T, t_in,
-        _build.stream_handle(planes))
+        planes.device.index, bulk.data_ptr(), bulk.stride(0), bulk.stride(1),
+        bulk.shape[1], _ptr(tail_block),
+        0 if tail_block is None else tail_block.stride(0),
+        0 if tail_block is None else tail_block.stride(1),
+        head.data_ptr(), hi.data_ptr(), out.data_ptr(), _ptr(scratch), B, C,
+        T, bulk.shape[2], n_steps, c_tile, _build.stream_handle(planes))
     _build.check(lib, rc, 'finalize_u8')
     launches['finalize_u8' if tail is None else 'finalize_u8_tail'] += 1
     return out

@@ -743,23 +743,37 @@ def _torch_dtype(dtype):
                             ).dtype
 
 
-def decompress_to_array(reader, first_chunk=0, last_chunk=None,
-                        device='cuda'):
+def decompress_to_array(reader, first_chunk=0, last_chunk=None, out=None,
+                        writable=True, device='cuda'):
     """Bulk-decode chunks [first, last] to one host ndarray via the GPU.
 
-    A span that decodes as one run returns the fetched buffer itself;
-    otherwise each run lands in one span-wide array.
+    Each run lands in one span-wide destination: ``out`` if given (a
+    ``(samples of the span, C)`` array of the reader's dtype, which is
+    returned), else allocated here. Without ``out``, a span that decodes
+    as one run returns the fetched buffer itself, with no copy.
+    ``writable`` has the JAX package's meaning: ``False`` allows a
+    read-only result, ``True`` never returns one. The port's fetch
+    (``Tensor.cpu().numpy()``) is always a fresh writable host array, so
+    both values return it as it comes.
     """
     last_chunk, total = _span(reader, first_chunk, last_chunk)
+    shape = (total, reader.n_channels)
+    if out is not None and (not isinstance(out, np.ndarray)
+                            or out.shape != shape
+                            or out.dtype != reader.dtype):
+        raise ValueError("out must be a %s ndarray of shape %s for chunks "
+                         "[%d, %d], got %s %s"
+                         % (reader.dtype, shape, first_chunk, last_chunk,
+                            getattr(out, 'dtype', type(out).__name__),
+                            getattr(out, 'shape', '')))
     code = np.dtype(getattr(reader, 'code_dtype', reader.dtype))
-    out = None
     for pos, block in _decode_runs(reader, first_chunk, last_chunk, device):
         if torch.is_tensor(block):
             block = block.cpu().numpy().view(code).view(reader.dtype)
-        if block.shape[0] == total:
+        if out is None and block.shape[0] == total:
             return block
         if out is None:
-            out = np.empty((total, reader.n_channels), reader.dtype)
+            out = np.empty(shape, reader.dtype)
         out[pos:pos + block.shape[0]] = block
     return out
 

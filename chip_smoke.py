@@ -13,9 +13,9 @@ b. build the port's CUDA kernels from ``mtscomp_tpu_torch/csrc`` (ptxas
    registers and spills of every entry, and each kernel's dynamic shared
    memory a block) and its C++ host runtime from
    ``mtscomp_tpu_torch/native``;
-d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks) and
-   compress them with the port's own host codec (``device='none'``,
-   ans v2):
+d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks; the
+   sources side by side on threads) and compress them with the port's
+   own host codec (``device='none'``, ans v2):
    - the fuse8 path: random walks with diff std 6, 32 s x 385 int16
      channels, 8 s x 384 channels and 8 s x 385 uint16 channels;
    - the generic path: 32 s x 385 int16 channels of the same walk with
@@ -46,8 +46,11 @@ c. hold every kernel form against its plain PyTorch twin on the card,
    1 step and K6's window counts around 16, steps reading close to 4096
    words, rows of count 0 and ragged counts, a word region ending at the
    stream's last word or off the 8-word grid) against their twins and
-   the normative coder; and decode the CPU tests' small geometries on
-   the card;
+   the normative coder; stage the first and the last chunk of every
+   file the window paths read alone (B=1, what a window stages) and
+   decode it with every kernel call held against its twin at that shape
+   (K1 octet, K2, K3, K4's plane and element forms, K5, int16 and
+   int32); and decode the CPU tests' small geometries on the card;
 e-g. decode path by path, with every launch count set to 0 just before
    and read just after: decode each file through
    ``mtscomp_tpu_torch.decompress(..., device='cuda')`` with
@@ -57,6 +60,24 @@ e-g. decode path by path, with every launch count set to 0 just before
    went to the host codec;
 h. drop one word, then half the words, of one group's stream and
    expect the word audit's IOError, on both routes;
+w. random-access windows on the card, path by path (``WINDOW_PATHS``:
+   the 385- and 384-channel walks, the spiky walk, and the C-order,
+   spatial-diff, uint8, int32, float32, order-2 and adaptive-window
+   branch files), counts set to 0 just before and read just after: open
+   with ``device='cuda'`` and a cache of 4 chunks, read ``r[a:b]`` inside
+   one chunk, across two and three, the first and last samples, a step
+   of 3, one row ``r[i]`` and ``r[:]``, each byte for byte against the
+   source; K1 launches once per chunk the cache did not hold (a model
+   LRU runs beside the reader's), a second read of a window launches
+   nothing, the cache evicts at its size, no chunk goes to the host
+   codec; a group that lost a word, read through a window, raises the
+   word audit's IOError;
+m. ``decompress_multi`` of four probes (the four 8-s stretches of the
+   32-s walk) as one merged batch, byte-exact; with a uint16 probe among
+   them the per-reader fallback, byte-exact;
+F3. ``to_array()`` of the 32-s walk as one batch and with
+   ``batch_chunks=8`` (four batches, four K1 launches): the same bytes,
+   the peak device memory of both;
 k. encode path by path (the two 32-s files, then the branch files),
    counts set to 0 just before and read just after: compress each
    through ``mtscomp_tpu_torch.compress(..., device='cuda')``, check the
@@ -64,6 +85,25 @@ k. encode path by path (the two 32-s files, then the branch files),
    launched and that no chunk went to the host codec (int32 excepted:
    ``supported()`` declines it, and all its chunks must go there), and
    decode each device-encoded file through the port to its source;
+t. the tools on the card, each command through ``python -m
+   mtscomp_tpu_torch.cli`` with ``--device cuda``, one after the other in
+   one process of their own that reports after each what it has loaded
+   (neither JAX nor the JAX package) and what the command launched, on
+   the 8-s 384-channel file: ``mtscomp`` (K6, no chunk on the host
+   codec) = the host route's bytes; ``mtsdecomp`` = the source,
+   ``--samples`` through the chunk cache (three chunks, three K1
+   launches); ``mtsverify`` decodes on the card (one batch: K1 and K2
+   once) and passes, and reports a flipped byte with exit code 1;
+   ``mtschop`` launches nothing; ``mtsrecompress`` ans -> zlib decodes on
+   the card (K1, K2), zlib -> ans encodes there (K6) = the bytes of
+   ``transcode(device='none')``, and verifies on the card; ``mtscomp
+   --parts 2 --workers 2`` (``compress_multihost``, each worker on the
+   card) and ``mtsmerge`` of its parts = the whole-file bytes, and
+   ``compress_multihost(device='cuda')`` with its ranges in this process
+   (K6 once a range); a
+   ``StreamWriter`` stream that dies, is resumed and finished = the
+   batch compress's bytes, tailed by a ``StreamReader`` on the card (K1
+   once a chunk read);
 i. time the staged decodes (the batch staged on the card once, CUDA
    events, median of repeats) and K1 alone on the whole-file batch
    (B=32, 128 groups), K6 and the device encode staged at B=8
@@ -72,10 +112,16 @@ i. time the staged decodes (the batch staged on the card once, CUDA
    twin, its bound and, where one PyTorch call computes the same
    function, that call, and the scans alone at B=2 and B=32
    (``SCAN_SHAPES``), with K3 at B=32, and K2 over channel counts on
-   and off the 32-byte sector grid (``FINALIZE_CHANNELS``).
+   and off the 32-byte sector grid (``FINALIZE_CHANNELS``); the staged
+   decode of ONE chunk (B=1, what a window stages) with K1 and K3 or
+   K4's plane form alone; windows of 1 s, 0.1 s and 30 samples, uncached
+   and cached, on the device route and on the host codec
+   (``device='none'``), host clock with a synchronize, median of 8; and
+   ``to_array()`` of the 32-s files on both routes in turns.
 
-The last four lines are a JSON summary of the end-to-end and staged
-timings (with the kernel forms no path launches, which are held
+Then come the host-clock seconds of each phase. The last four lines
+are a JSON summary of the end-to-end and staged timings (with the
+kernel forms no path launches, which are held
 against their twins only), a JSON object with one entry per kernel
 form that the paths launch (its launches in total and by path, its
 time, its twin's, its bound and the library call's), the card's name
@@ -83,7 +129,10 @@ and power limit, and ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Without a CUDA GPU it exits with code 2 and prints no result.
 """
 
+import concurrent.futures
+import contextlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -104,6 +153,8 @@ from mtscomp_tpu_torch.ops import device_delta as dd
 from mtscomp_tpu_torch.ops import rans_decode as rd
 from mtscomp_tpu_torch.ops import rans_encode as renc
 from mtscomp_tpu_torch.ops.tables import pack_device_tables
+from mtscomp_tpu_torch.parallel import pipeline
+from mtscomp_tpu_torch.parallel.distributed import compress_multihost
 from mtscomp_tpu_torch.parallel.pipeline import (
     DeviceBatchDecoder, DeviceBatchEncoder, _decode_fuse8, _rans_planes,
     _read_payload, check_words_used, fuse8_planes, generic_elems,
@@ -377,6 +428,26 @@ ENCODED = {name for names, _forms in ENCODE_PATHS.values() for name in names}
 #: their twins and timed, and reported apart from the path kernels.
 ON_PATH = {form for paths in (PATHS, ENCODE_PATHS)
            for _names, forms, *_not in paths.values() for form in forms}
+
+#: Window paths (phase w), each driven with the counts set to 0 just
+#: before it: name -> (recordings read through ``Reader[...]`` on the card,
+#: kernel forms that must have launched). A window decodes one chunk a
+#: call (B=1) through the forms of its file's decode path.
+WINDOW_PATHS = {
+    'windows_fuse8': (('int16_385ch', 'int16_384ch'),
+                      ('rans_decode_octet', 'finalize_u8',
+                       'finalize_u8_tail')),
+    'windows_generic': (('spiky_int16_385ch',),
+                        ('rans_decode_octet', 'scan_planes_i16_seeded')),
+    'windows_branches': (('c_order', 'spatial', 'uint8', 'int32',
+                          'float32_order2', 'order2_fuse8', 'adaptive'),
+                         ('rans_decode_octet', 'finalize_u8_tail',
+                          'scan_transposed_i16_seeded',
+                          'scan_transposed_i32_seeded', 'cumsum_time_i16',
+                          'cumsum_time_i32')),
+}
+#: Decoded chunks a window reader keeps on the card (phase w).
+WINDOW_CACHE = 4
 
 
 def log(msg):
@@ -747,11 +818,31 @@ def make_recording(path, kind, seconds, n_channels, dtype, seed):
     return arr
 
 
+def make_recordings(workdir):
+    """Phase d: every one of ``RECORDINGS``, the sources made side by side
+    on threads (each from its own seed, the longest first), then
+    compressed one after the other, so that the host compress times
+    stand alone."""
+    def make(name):
+        kind, seconds, n_channels, dtype, seed = RECORDINGS[name][:5]
+        t0 = time.perf_counter()
+        arr = make_recording(workdir / (name + '.bin'), kind, seconds,
+                             n_channels, dtype, seed)
+        return arr, time.perf_counter() - t0
+
+    names = sorted(RECORDINGS, key=lambda n: -RECORDINGS[n][1])
+    with concurrent.futures.ThreadPoolExecutor(
+            max(1, min(6, os.cpu_count() or 1))) as pool:
+        made = dict(zip(names, pool.map(make, names)))
+    return {name: Recording(workdir, name, *made[name])
+            for name in RECORDINGS}
+
+
 class Recording:
     """A compressed test recording and its source samples."""
 
-    def __init__(self, workdir, name):
-        (kind, seconds, n_channels, dtype, seed, opts, min_freq,
+    def __init__(self, workdir, name, arr, made_s):
+        (kind, seconds, n_channels, dtype, _seed, opts, min_freq,
          self.expect) = RECORDINGS[name]
         self.name = name
         self.raw = workdir / (name + '.bin')
@@ -761,9 +852,7 @@ class Recording:
         self.kwargs = dict(sample_rate=float(SR), n_channels=n_channels,
                            dtype=dtype, algorithm='ans', quiet=True,
                            check_after_compress=False, **opts)
-        t0 = time.perf_counter()
-        self.arr = make_recording(self.raw, kind, seconds, n_channels, dtype,
-                                  seed)
+        self.arr = arr
         t1 = time.perf_counter()
         quantize_rows = ans_codec._quantize_rows
         if min_freq is not None:
@@ -779,10 +868,10 @@ class Recording:
         if name not in ENCODED:
             self.raw.unlink()
         log('d. %s: %d s x %d ch %s (%s), %.1f MB raw -> %.1f MB (x%.3f); '
-            'made in %.1f s, host compress %.1f s'
+            'made in %.1f s (beside the others), host compress %.1f s'
             % (name, seconds, n_channels, dtype, kind, self.arr.nbytes / 1e6,
                self.cbin.stat().st_size / 1e6,
-               self.arr.nbytes / self.cbin.stat().st_size, t1 - t0, t2 - t1))
+               self.arr.nbytes / self.cbin.stat().st_size, made_s, t2 - t1))
 
     def device_compress(self):
         """compress() on the device route: the same .cbin and .ch bytes
@@ -820,10 +909,11 @@ class Recording:
                                n_host, n_chunks))
         return dt, n_host, n_chunks
 
-    def reader(self):
+    def reader(self, device=None, **kwargs):
         # The smoke test compares every byte itself: no host re-decode.
-        return mt.decompress(self.cbin, self.ch, device=DEVICE, quiet=True,
-                             check_after_decompress=False)
+        return mt.decompress(self.cbin, self.ch, device=device or DEVICE,
+                             quiet=True, check_after_decompress=False,
+                             **kwargs)
 
     def writer_batch(self, n_chunks=BATCH):
         """An open port Writer (device route) over the recording and its
@@ -925,6 +1015,18 @@ def k1_calls(fn, args):
             {'one_fixup': fixups == 1})
 
 
+def finalize_call(bulk, tail_block, heads, hi):
+    """The finalize a fuse8 batch runs: (name, kernel, twin, args) of K2,
+    or of K3 where the batch has a ragged-tail block."""
+    if tail_block is None:
+        return ('finalize_u8 (K2)', dd.cumsum_time_transposed_u8,
+                dd.cumsum_time_transposed_u8_ref, (bulk, heads, hi))
+    cA = bulk.shape[1]
+    return ('finalize_u8, tail form (K3)', dd.cumsum_time_transposed_u8_tail,
+            dd.cumsum_time_transposed_u8_tail_ref,
+            (bulk, tail_block, heads[:, :cA], heads[:, cA:], hi))
+
+
 def check_kernels(recs):
     """Phase c: every kernel form against its twin at the path's shapes.
     Returns ``{name: (kernel, twin, args, kwargs, err)}``, at the first
@@ -957,17 +1059,8 @@ def check_kernels(recs):
                                             k=kw['k'], tp=kw['tp'],
                                             tail=kw['tail'])
             hi = const_vals[:, 0]
-            if tail_block is None:
-                key, kernel, twin = ('finalize_u8 (K2)',
-                                     dd.cumsum_time_transposed_u8,
-                                     dd.cumsum_time_transposed_u8_ref)
-                f_args = (bulk, heads, hi)
-            else:
-                key, kernel, twin = ('finalize_u8, tail form (K3)',
-                                     dd.cumsum_time_transposed_u8_tail,
-                                     dd.cumsum_time_transposed_u8_tail_ref)
-                cA = bulk.shape[1]
-                f_args = (bulk, tail_block, heads[:, :cA], heads[:, cA:], hi)
+            key, kernel, twin, f_args = finalize_call(bulk, tail_block,
+                                                      heads, hi)
             out = record(key, kernel, twin, f_args, {'n_samples': SR})
             done.append(key)
             # The finalize is the plane form with a CONST high plane (its
@@ -1047,6 +1140,82 @@ def check_plane_form(record, planes, heads, zigzag, want):
            dd.cumsum_time_transposed_planes,
            dd.cumsum_time_transposed_planes_ref, planes + (None,),
            {'zigzag': zigzag})
+
+
+#: The kernel wrappers the decode pipeline calls, by the name it calls
+#: them under, and each one's plain twin.
+PIPELINE_TWINS = {
+    'decode_groups': rd.decode_groups_ref,
+    'decode_groups_coarse': rd.decode_groups_coarse_ref,
+    'cumsum_time': dd.cumsum_time_ref,
+    'cumsum_time_transposed': dd.cumsum_time_transposed_ref,
+    'cumsum_time_transposed_planes': dd.cumsum_time_transposed_planes_ref,
+    'cumsum_time_transposed_u8': dd.cumsum_time_transposed_u8_ref,
+    'cumsum_time_transposed_u8_tail': dd.cumsum_time_transposed_u8_tail_ref,
+}
+
+
+@contextlib.contextmanager
+def held_against_twins(seen):
+    """While open, every kernel call of the decode pipeline also runs the
+    kernel's twin on the same card tensors and fails unless the two give
+    the same bytes (K1: in the live symbol columns). The launch counters
+    that moved are added to ``seen``."""
+    def checked(name, kernel, twin):
+        def call(*args, **kwargs):
+            live = None
+            if name.startswith('decode_groups'):
+                counts, S = args[4], args[5]
+                live = (torch.arange(S * LANES, device=counts.device)
+                        < counts[:, :, None].long())
+            before = mt.launch_counts()
+            _err, got = compare(kernel, twin, args, kwargs, live)
+            after = mt.launch_counts()
+            seen.update(k for k in after if after[k] > before[k])
+            return got
+        call.__name__ = name
+        return call
+
+    kernels = {name: getattr(pipeline, name) for name in PIPELINE_TWINS}
+    for name, twin in PIPELINE_TWINS.items():
+        setattr(pipeline, name, checked(name, kernels[name], twin))
+    try:
+        yield
+    finally:
+        for name, kernel in kernels.items():
+            setattr(pipeline, name, kernel)
+
+
+def check_single_chunk_forms(recs):
+    """Phase c, B=1: the first and the last chunk of every file the
+    window paths read, each staged alone as a window stages it, decoded
+    with every kernel call held against its twin at that shape, and
+    compared with the source; every form of the window path was among
+    them."""
+    for path, (names, kernels) in WINDOW_PATHS.items():
+        seen, n_chunks = set(), 0
+        for name in names:
+            rec, r = recs[name], recs[name].reader()
+            try:
+                for idx in sorted({0, r.n_chunks - 1}):
+                    parsed = [r.codec.parse(_read_payload(r, idx))]
+                    dec = DeviceBatchDecoder(r, DEVICE)
+                    require(dec.supported(parsed, SR),
+                            '%s: chunk %d not supported' % (name, idx))
+                    with held_against_twins(seen):
+                        out = dec.decode_tensor(parsed, SR)
+                    require(out.cpu().numpy().tobytes()
+                            == rec.arr[idx * SR:(idx + 1) * SR].tobytes(),
+                            '%s: chunk %d staged alone differs from the '
+                            'source' % (name, idx))
+                    n_chunks += 1
+            finally:
+                r.close()
+        require(set(kernels) <= seen, 'the %s files launched %s at B=1, '
+                'expected %s among them' % (path, sorted(seen), kernels))
+        log('c. B=1, %s: %d chunks of %s staged alone, byte-exact; %s equal '
+            'their twins byte for byte at every call'
+            % (path, n_chunks, ', '.join(names), ', '.join(sorted(seen))))
 
 
 def check_scan_edge_cases():
@@ -1358,6 +1527,618 @@ def check_audit(staged):
                                    % (name, what))
 
 
+# --- random-access windows, multi-probe, bounded batches, tools -----------
+
+def kernel_launches():
+    """(launches of every kernel form so far, K1's alone)."""
+    counts = {k: v for k, v in mt.launch_counts().items()
+              if not k.startswith('host_')}
+    return (sum(counts.values()),
+            sum(v for k, v in counts.items() if k.startswith('rans_decode')))
+
+
+def lru_after(order, capacity, ids):
+    """An LRU of ``capacity`` entries, oldest first in ``order``, after it
+    served ``ids`` in turn: (misses, new order)."""
+    order, misses = list(order), 0
+    for i in ids:
+        if i in order:
+            order.remove(i)
+        else:
+            misses += 1
+        order.append(i)
+        del order[:-capacity]
+    return misses, order
+
+
+def window_exprs(ns, n_chunks):
+    """Index expressions of phase w: inside one chunk, across two (and
+    three where the file has four), the first and last samples, a step
+    of 3, one row, everything."""
+    exprs = [slice(SR // 3, SR // 3 + 5000), slice(SR - 50, SR + 50),
+             slice(0, 1), slice(ns - 1, ns), slice(100, SR + 100, 3),
+             ns // 2 + 7, slice(None)]
+    if n_chunks >= 4:
+        exprs.insert(2, slice(2 * SR - 10, 3 * SR + 10))
+    return exprs
+
+
+def read_windows(rec):
+    """Phase w on one recording: every window byte for byte against the
+    source, one K1 launch per chunk the cache did not hold (a model LRU
+    run beside the reader's), no launch at all on a second read."""
+    r = rec.reader(cache_size=WINDOW_CACHE)
+    try:
+        ns, n_reads = r.n_samples, 0
+        for expr in window_exprs(ns, r.n_chunks):
+            if isinstance(expr, slice):
+                i0, i1, _step = expr.indices(ns)
+            else:
+                i0, i1 = expr, expr + 1
+            first, last = r._chunks_for_interval(i0, i1 - 1)
+            ids = list(range(first, last + 1))
+            cache = r._dev_cache
+            misses, order = lru_after(list(cache._cache) if cache else [],
+                                      WINDOW_CACHE, ids)
+            total0, k1_0 = kernel_launches()
+            got = r[expr]
+            total1, k1_1 = kernel_launches()
+            require(got.dtype == rec.arr.dtype
+                    and np.array_equal(got, rec.arr[expr]),
+                    '%s: window %s differs from the source'
+                    % (rec.name, expr))
+            require(k1_1 - k1_0 == misses, '%s: window %s launched K1 %d '
+                    'times for %d uncached chunks'
+                    % (rec.name, expr, k1_1 - k1_0, misses))
+            require(list(r._dev_cache._cache) == order
+                    and len(order) <= WINDOW_CACHE,
+                    '%s: the cache holds chunks %s after window %s, its '
+                    'model %s' % (rec.name, list(r._dev_cache._cache), expr,
+                                  order))
+            if len(ids) <= WINDOW_CACHE:
+                again = r[expr]
+                require(np.array_equal(again, got) and again is not got,
+                        '%s: the second read of window %s differs'
+                        % (rec.name, expr))
+                require(kernel_launches()[0] == total1, '%s: the second '
+                        'read of window %s launched a kernel'
+                        % (rec.name, expr))
+            n_reads += 1
+        if r.n_chunks > WINDOW_CACHE:
+            require(len(r._dev_cache._cache) == WINDOW_CACHE, '%s: the cache '
+                    'holds %d chunks, its size is %d'
+                    % (rec.name, len(r._dev_cache._cache), WINDOW_CACHE))
+        on_card = {t.device.type for t in r._dev_cache._cache.values()}
+        require(on_card == {torch.device(DEVICE).type},
+                '%s: cached chunks on %s' % (rec.name, on_card))
+    finally:
+        r.close()
+    require(r._dev_cache is None, 'close() kept the window cache')
+    return n_reads
+
+
+def drive_window_paths(recs):
+    """Phase w, path by path: counts set to 0 just before each path and
+    read just after. Returns the counts by path."""
+    counts_by_path = {}
+    for path, (names, kernels) in WINDOW_PATHS.items():
+        mt.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_reads = sum(read_windows(recs[name]) for name in names)
+        torch.cuda.synchronize()
+        counts = mt.launch_counts()
+        counts_by_path[path] = counts
+        log('w. %s: %d windows of %s byte-exact in %.1f s; launch counts: %s'
+            % (path, n_reads, ', '.join(names), time.perf_counter() - t0,
+               json.dumps(counts)))
+        for key in kernels:
+            require(counts[key] > 0, 'kernel %s never launched on the %s '
+                    'path' % (key, path))
+        require(counts['host_fallback_chunks'] == 0,
+                '%d chunks fell back to the host codec on the %s path'
+                % (counts['host_fallback_chunks'], path))
+    return counts_by_path
+
+
+def check_window_audit(recs):
+    """Phase w, audit: a group that lost a word, read through a window,
+    raises the word audit's IOError and leaves nothing in the cache."""
+    for name in ('int16_385ch', 'spiky_int16_385ch'):
+        r = recs[name].reader()
+        parse = r.codec.parse
+
+        def dropping_a_word(payload):
+            parsed = dict(parse(payload))
+            groups = [dict(g) for g in parsed['groups']]
+            groups[0]['words'] = groups[0]['words'][:-1]
+            parsed['groups'] = groups
+            return parsed
+
+        r.codec.parse = dropping_a_word
+        try:
+            r[SR + 10:SR + 20]
+        except IOError as e:
+            require(not r._dev_cache._cache, 'a corrupt chunk was cached')
+            log('w. %s, one dropped word read through a window -> IOError: '
+                '%s' % (name, e))
+        else:
+            raise RuntimeError('%s: a dropped word passed the window\'s '
+                               'word audit' % name)
+        finally:
+            r.close()
+
+
+def check_multi(workdir, recs):
+    """Phase m: four probes (the four 8-s stretches of the 32-s walk, 385
+    ch) through ``decompress_multi``: one merged batch (one K1 launch),
+    every probe byte-exact; with a probe of another dtype among them, the
+    per-reader fallback, byte-exact too."""
+    kwargs = dict(sample_rate=float(SR), n_channels=385, dtype='int16',
+                  algorithm='ans', quiet=True, check_after_compress=False,
+                  **ORDER1)
+    walk = recs['int16_385ch'].arr
+    arrs, readers = [], []
+    try:
+        for i in range(4):
+            raw, cbin, ch = (workdir / ('probe%d%s' % (i, ext))
+                             for ext in ('.bin', '.cbin', '.ch'))
+            arrs.append(walk[i * SHORT_SECONDS * SR:
+                             (i + 1) * SHORT_SECONDS * SR])
+            arrs[i].tofile(raw)
+            mt.compress(raw, cbin, ch, device='none', **kwargs)
+            raw.unlink()
+            readers.append(mt.decompress(cbin, ch, device=DEVICE, quiet=True,
+                                         check_after_decompress=False))
+        mt.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = mt.decompress_multi(readers)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = mt.launch_counts()
+        require(all(np.array_equal(o, a) for o, a in zip(outs, arrs)),
+                'decompress_multi differs from the sources')
+        require(kernel_launches()[1] == 1 and counts['finalize_u8_tail'] == 1,
+                'decompress_multi launched %s, expected one merged batch'
+                % json.dumps(counts))
+        require(counts['host_fallback_chunks'] == 0,
+                'decompress_multi sent chunks to the host codec')
+        del outs
+        # A probe of another dtype: no shared decode identity.
+        other = recs['uint16_385ch']
+        readers.append(other.reader())
+        mt.reset_launch_counts()
+        outs = mt.decompress_multi(readers[1:])
+        require(all(np.array_equal(o, a) for o, a in
+                    zip(outs, arrs[1:] + [other.arr])),
+                'decompress_multi\'s fallback differs from the sources')
+        require(kernel_launches()[1] == 4, 'the fallback launched K1 %d '
+                'times for 4 readers' % kernel_launches()[1])
+        log('m. decompress_multi: 4 probes x %d chunks in one batch, %.3f s '
+            '(host clock), byte-exact; with a uint16 probe among them the '
+            'per-reader fallback, byte-exact' % (SHORT_SECONDS, dt))
+        return {'probes': 4, 'chunks_each': SHORT_SECONDS, 'merged_s': dt}
+    finally:
+        for r in readers:
+            r.close()
+
+
+def check_bounded_batches(rec):
+    """F3: ``to_array()`` of a 32-s file as one batch (the default bound
+    keeps it whole) and with ``batch_chunks=8`` (four batches): the same
+    bytes, K1 launched once a batch; peak device memory of both."""
+    out = {}
+    for label, kwargs, batches in (
+            ('one_batch', {}, 1),
+            ('batch_chunks_%d' % BATCH, {'batch_chunks': BATCH},
+             SECONDS // BATCH)):
+        r = rec.reader(**kwargs)
+        try:
+            mt.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            got = r.to_array()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            k1 = kernel_launches()[1]
+            require(np.array_equal(got, rec.arr), '%s: to_array() in %d '
+                    'batches differs from the source' % (rec.name, batches))
+            require(k1 == batches, '%s: to_array() launched K1 %d times, '
+                    'expected %d batches' % (rec.name, k1, batches))
+            del got
+        finally:
+            r.close()
+        out[label] = {'batches': batches, 'to_array_s': dt,
+                      'peak_device_bytes': peak}
+        log('F3. %s to_array(), %s: %d K1 launches, %.3f s (host clock), '
+            'peak device memory %.1f MB above the %.1f MB held before'
+            % (rec.name, label, k1, dt, peak / 1e6, base / 1e6))
+    return out
+
+
+#: What the child of phase t runs: each command line it is given through
+#: ``python -m mtscomp_tpu_torch.cli`` as ``runpy`` runs it, one after the
+#: other in one process (a process takes longer to reach the card than a
+#: command takes), reporting after each its exit code, which modules the
+#: process has loaded and what the command launched.
+CLI_CHILD = """
+import json, runpy, sys, time
+import mtscomp_tpu_torch as mt
+for argv in json.loads(sys.argv[1]):
+    mt.reset_launch_counts()
+    sys.argv = ['mtscomp_tpu_torch.cli'] + argv
+    t0, rc = time.perf_counter(), 0
+    try:
+        runpy.run_module('mtscomp_tpu_torch.cli', run_name='__main__',
+                         alter_sys=True)
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+    print('\\nCHILD ' + json.dumps({
+        'rc': rc, 'seconds': time.perf_counter() - t0,
+        'loaded': sorted(m for m in sys.modules if m.split('.')[0]
+                         in ('jax', 'jaxlib', 'mtscomp_tpu')),
+        'counts': mt.launch_counts()}), flush=True)
+"""
+
+
+def run_cli(workdir, commands):
+    """The port's CLI in one fresh process (its HOME the work directory:
+    no user configuration): ``commands`` is a list of ``(argv, exit code
+    wanted)``. Returns ``[(stdout, launch counts)]``, one for each
+    command; fails on another exit code or if the process loaded JAX or
+    the JAX package."""
+    env = dict(os.environ, HOME=str(workdir),
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-c', CLI_CHILD,
+         json.dumps([argv for argv, _rc in commands])],
+        cwd=str(workdir), env=env, capture_output=True, text=True,
+        timeout=600)
+    pieces = proc.stdout.split('\nCHILD ')
+    require(proc.returncode == 0 and len(pieces) == len(commands) + 1,
+            'the CLI process ended with code %d after %d of %d commands: %s'
+            % (proc.returncode, len(pieces) - 1, len(commands),
+               proc.stderr[-2000:]))
+    # A piece after the first is a command's report line, then the next
+    # command's output.
+    tails = [piece.partition('\n') for piece in pieces[1:]]
+    stdouts = [pieces[0]] + [tail for _report, _nl, tail in tails]
+    out = []
+    for (argv, want_rc), stdout, (report, _nl, _tail) in zip(
+            commands, stdouts, tails):
+        child = json.loads(report)
+        name = ' '.join(a if len(a) < 24 else Path(a).name for a in argv)
+        require(child['rc'] == want_rc, '%s exited with code %d, expected '
+                '%d: %s' % (name, child['rc'], want_rc, proc.stderr[-2000:]))
+        require(not child['loaded'], '%s loaded %s' % (name, child['loaded']))
+        log('t. %s: exit code %d in %.1f s, no JAX module loaded; launched '
+            '%s' % (name, child['rc'], child['seconds'], json.dumps(
+                {k: v for k, v in child['counts'].items() if v})))
+        out.append((stdout, child['counts']))
+    log('t. %d commands in one process, %.1f s with its start'
+        % (len(commands), time.perf_counter() - t0))
+    return out
+
+
+def check_tools(workdir, recs):
+    """Phase t: the tool layer on the card, each command through
+    ``python -m mtscomp_tpu_torch.cli`` with ``--device cuda`` on an 8-s
+    file; then a live stream written, resumed and tailed."""
+    rec = recs['int16_384ch']
+    src = rec.arr
+    meta = ['-d', 'int16', '-s', str(SR), '-n', '384', '-a', 'ans',
+            '--diff-order', '1', '--spatial-diff', '0', '-nc']
+    on_card = ['--device', DEVICE]
+    t = {ext: str(workdir / ('tool' + ext)) for ext in
+         ('.cbin', '.ch', '.bin', '.win.bin', '.chop.cbin', '.z.cbin',
+          '.a.cbin', '.host.cbin', '.parts.cbin', '.parts.ch',
+          '.merged.cbin', '.flip.cbin', '.flip.ch')}
+    blob = bytearray(rec.cbin.read_bytes())
+    blob[len(blob) // 2] ^= 0x20
+    Path(t['.flip.cbin']).write_bytes(bytes(blob))
+    shutil.copy(rec.ch, t['.flip.ch'])
+    a, b = SR - 1000, 2 * SR + 1000
+    half = src.shape[0] // SR // 2
+    parts = [str(workdir / ('part_%06d_%06d.cbin' % (i * half,
+                                                      (i + 1) * half)))
+             for i in range(2)]
+    (comp, decomp, window, verify, flipped, chop, to_zlib, to_ans, multihost,
+     _merge) = run_cli(workdir, [
+        (['mtscomp', str(rec.raw), t['.cbin'], t['.ch']] + on_card + meta, 0),
+        (['mtsdecomp', t['.cbin'], '-o', t['.bin'], '-nc'] + on_card, 0),
+        (['mtsdecomp', t['.cbin'], '-o', t['.win.bin'], '--samples',
+          '%d:%d' % (a, b)] + on_card, 0),
+        (['mtsverify', t['.cbin']] + on_card, 0),
+        (['mtsverify', t['.flip.cbin']] + on_card, 1),
+        (['mtschop', t['.cbin'], '-n', '2', '-o', t['.chop.cbin']], 0),
+        (['mtsrecompress', t['.chop.cbin'], '-o', t['.z.cbin'], '-a', 'zlib']
+         + on_card, 0),
+        (['mtsrecompress', t['.z.cbin'], '-o', t['.a.cbin'], '-a', 'ans',
+          '--ans-tables', 'segment'] + on_card, 0),
+        (['mtscomp', str(rec.raw), t['.parts.cbin'], t['.parts.ch'],
+          '--parts', '2', '--workers', '2'] + on_card + meta, 0),
+        (['mtsmerge'] + parts + ['-o', t['.merged.cbin']], 0)])
+
+    def launched(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    # mtscomp on the card (K6) = the host route's bytes.
+    counts = comp[1]
+    require(counts['rans_encode'] > 0 and counts['host_encoded_chunks'] == 0,
+            'mtscomp --device %s: %s' % (DEVICE, launched(counts)))
+    require(Path(t['.cbin']).read_bytes() == rec.cbin.read_bytes()
+            and Path(t['.ch']).read_bytes() == rec.ch.read_bytes(),
+            'mtscomp --device %s wrote other bytes than the host route'
+            % DEVICE)
+    # mtsdecomp on the card = the source; a sample window through the
+    # chunk cache.
+    counts = decomp[1]
+    require(counts['rans_decode_octet'] > 0 and counts['finalize_u8'] > 0
+            and counts['host_fallback_chunks'] == 0,
+            'mtsdecomp --device %s: %s' % (DEVICE, launched(counts)))
+    require(np.array_equal(np.fromfile(t['.bin'], src.dtype).reshape(
+        src.shape), src), 'mtsdecomp differs from the source')
+    counts = window[1]
+    require(counts['rans_decode_octet'] == 3 and counts['finalize_u8'] == 3,
+            'mtsdecomp --samples: %s, expected three chunks'
+            % launched(counts))
+    require(np.array_equal(np.fromfile(t['.win.bin'], src.dtype).reshape(
+        -1, src.shape[1]), src[a:b]), 'mtsdecomp --samples differs')
+    # mtsverify decodes on the card (the 8 chunks are one batch), passes,
+    # and reports a flipped byte from there.
+    out, counts = verify
+    require(counts['rans_decode_octet'] == 1 and counts['finalize_u8'] == 1
+            and counts['host_fallback_chunks'] == 0,
+            'mtsverify --device %s: %s' % (DEVICE, launched(counts)))
+    require('verdict' in out and 'OK' in out and 'FAILED' not in out,
+            'mtsverify: %s' % out)
+    out, counts = flipped
+    decode = [line for line in out.splitlines()
+              if line.startswith('chunks_decode')]
+    require('FAILED' in out and 'MISMATCH' in out and len(decode) == 1
+            and not decode[0].endswith(' ok')
+            and counts['host_fallback_chunks'] == 0,
+            'mtsverify passed a flipped byte: %s' % out)
+    # mtschop copies bytes; mtsrecompress ans -> zlib decodes on the card,
+    # zlib -> ans encodes there: the host route's bytes.
+    require(not launched(chop[1]), 'mtschop launched %s' % launched(chop[1]))
+    counts = to_zlib[1]
+    require(counts['rans_decode_octet'] > 0 and counts['finalize_u8'] > 0
+            and counts['host_fallback_chunks'] == 0,
+            'mtsrecompress -a zlib --device %s: %s'
+            % (DEVICE, launched(counts)))
+    counts = to_ans[1]
+    require(counts['rans_encode'] > 0 and counts['host_encoded_chunks'] == 0
+            and counts['rans_decode_octet'] == 0,
+            'mtsrecompress -a ans --device %s: %s'
+            % (DEVICE, launched(counts)))
+    mt.transcode(t['.z.cbin'], out=t['.host.cbin'], algorithm='ans',
+                 ans_table_mode='segment', device='none', quiet=True)
+    for ext in ('.cbin', '.ch'):
+        require(Path(t['.a.cbin']).with_suffix(ext).read_bytes()
+                == Path(t['.host.cbin']).with_suffix(ext).read_bytes(),
+                'mtsrecompress --device %s wrote another %s than the host '
+                'route' % (DEVICE, ext))
+    before = kernel_launches()[1]
+    require(mt.verify_file(t['.a.cbin'], quiet=True, device=DEVICE)['ok']
+            and kernel_launches()[1] == before + 1,
+            'the recompressed file does not verify on the card')
+    r = mt.decompress(t['.a.cbin'], device=DEVICE, quiet=True,
+                      check_after_decompress=False)
+    try:
+        require(np.array_equal(r.to_array(), src[:2 * SR])
+                and np.array_equal(r[SR - 7:SR + 7], src[SR - 7:SR + 7]),
+                'zlib -> ans: the recompressed file differs from the source')
+    finally:
+        r.close()
+    # compress_multihost: two worker processes, each on the card because
+    # the device is named (their launches are their own processes'), then
+    # mtsmerge of the parts: both the whole-file bytes.
+    require(multihost[1]['host_encoded_chunks'] == 0,
+            'mtscomp --parts: %s' % launched(multihost[1]))
+    for name in ('.parts.cbin', '.merged.cbin'):
+        require(Path(t[name]).read_bytes() == rec.cbin.read_bytes(),
+                'tool%s differs from the whole-file compress' % name)
+    # What a worker runs with the device named, here in this process
+    # where its launches can be read: each range through K6.
+    mt.reset_launch_counts()
+    compress_multihost(
+        rec.raw, workdir / 'ranges.cbin', workdir / 'ranges.ch', 2,
+        part_dir=workdir / 'ranges', n_workers=1, device=DEVICE,
+        **rec.kwargs)
+    counts = mt.launch_counts()
+    require(counts['rans_encode'] >= 2 and counts['host_encoded_chunks'] == 0,
+            'compress_multihost(device=%r): %s' % (DEVICE, launched(counts)))
+    require((workdir / 'ranges.cbin').read_bytes() == rec.cbin.read_bytes(),
+            'compress_multihost(device=%r) differs from the whole-file '
+            'compress' % DEVICE)
+    # A live stream that dies after three chunks, resumed, finished and
+    # tailed on the card.
+    live, live_ch = workdir / 'live.cbin', workdir / 'live.ch'
+    kwargs = dict(sample_rate=float(SR), n_channels=384, dtype='int16',
+                  algorithm='ans', ans_table_mode='segment', **ORDER1)
+    w = mt.StreamWriter(live, live_ch, live_sidecar=True, **kwargs)
+    w.append(src[:3 * SR + 777])
+    w._fb.close()                       # the crash: 777 samples are lost
+    before = kernel_launches()[1]
+    tail = mt.StreamReader(live, live_ch, device=DEVICE)
+    try:
+        require(tail.n_samples == 3 * SR and not tail.finalized
+                and np.array_equal(tail[-SR // 2:], src[3 * SR - SR // 2:3 * SR]),
+                'the tail of the live stream differs')
+        w = mt.StreamWriter.resume(live, live_ch)
+        require(w.n_samples == 3 * SR, 'resumed at sample %d' % w.n_samples)
+        w.append(src[w.n_samples:])
+        w.close()
+        require(tail.refresh() and tail.finalized
+                and np.array_equal(tail[5 * SR - 9:5 * SR + 9],
+                                   src[5 * SR - 9:5 * SR + 9]),
+                'the tail of the finished stream differs')
+    finally:
+        tail.close()
+    k1 = kernel_launches()[1] - before
+    require(k1 == 3, 'the StreamReader on the card launched K1 %d times for '
+            'three chunks' % k1)
+    require(live.read_bytes() == rec.cbin.read_bytes()
+            and json.loads(live_ch.read_text())
+            == json.loads(rec.ch.read_text()),
+            'the resumed stream differs from the batch compress')
+    log('t. StreamWriter: 3 chunks, a crash, resume, %d chunks: the batch '
+        'compress\'s bytes; StreamReader tailed it on the card (K1 once a '
+        'chunk read)' % (src.shape[0] // SR))
+
+
+def host_ms(fn, reps=REPS):
+    """Median over ``reps`` of the host-clock time of ``fn()`` followed by
+    a synchronize, in ms, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+#: Timed windows (phase i): name -> (first sample, samples), inside one
+#: chunk of the 32-s files.
+WINDOWS = {'1s': (5 * SR, SR), '0.1s': (5 * SR + 1000, SR // 10),
+           '30_samples': (5 * SR + 1000, 30)}
+
+
+def time_windows(recs):
+    """Phase i, windows: ``r[a:b]`` inside one chunk, uncached (both
+    caches emptied before each read) and cached, on the device route and
+    on the host codec (``device='none'``), same file, same run."""
+    out = {}
+    for name in ('int16_385ch', 'spiky_int16_385ch'):
+        rec, out[name] = recs[name], {}
+        for route, device in (('device', DEVICE), ('host', 'none')):
+            r = rec.reader(device=device, cache_size=WINDOW_CACHE)
+            try:
+                for label, (a, n) in WINDOWS.items():
+                    def uncached():
+                        if r._dev_cache is not None:
+                            r._dev_cache.clear()
+                        r.read_chunk.cache_clear()
+                        return r[a:a + n]
+
+                    require(np.array_equal(uncached(), rec.arr[a:a + n]),
+                            '%s: timed window differs' % name)
+                    out[name]['%s_%s' % (label, route)] = {
+                        'uncached_ms': host_ms(uncached),
+                        'cached_ms': host_ms(lambda: r[a:a + n])}
+            finally:
+                r.close()
+        for label in WINDOWS:
+            dev, host = (out[name]['%s_%s' % (label, route)]
+                         for route in ('device', 'host'))
+            log('i. %s window of %s: uncached %.3f ms on the card, %.3f on '
+                'the host codec; cached %.3f, %.3f (host clock, median of %d)'
+                % (label, name, dev['uncached_ms'], host['uncached_ms'],
+                   dev['cached_ms'], host['cached_ms'], REPS))
+    return out
+
+
+def time_routes(recs):
+    """Phase i: ``to_array()`` of the 32-s files on the device route and
+    on the host codec in turns (device, host, host, device), host
+    clock."""
+    out = {}
+    for name in ('int16_385ch', 'spiky_int16_385ch'):
+        rec, times = recs[name], {'device_s': [], 'host_s': []}
+        for route in ('device', 'host', 'host', 'device'):
+            r = rec.reader(device=DEVICE if route == 'device' else 'none')
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = r.to_array()
+                torch.cuda.synchronize()
+                times[route + '_s'].append(time.perf_counter() - t0)
+                require(np.array_equal(got, rec.arr), '%s: to_array() on '
+                        'the %s route differs' % (name, route))
+                del got
+            finally:
+                r.close()
+        out[name] = times
+        log('i. %s to_array(): device route %s s, host codec %s s (host '
+            'clock, in turns)' % (name, times['device_s'], times['host_s']))
+    return out
+
+
+def time_single_chunk(recs):
+    """Phase i, B=1 (what a window stages): the staged decode of one
+    chunk of each 32-s file, and its kernels alone (K1 on 4 or 7 groups,
+    K3 or K4's plane form), each held against its twin, CUDA events."""
+    out = {}
+    for name in ('int16_385ch', 'spiky_int16_385ch'):
+        r, parsed, fn, args = recs[name].staged(1)
+        try:
+            res, used = fn(*args)
+            check_words_used(parsed, used)
+            arr = recs[name].arr[:SR]
+            require(np.array_equal(res.cpu().numpy().reshape(arr.shape), arr),
+                    '%s: the B=1 staged decode differs' % name)
+            staged_ms = cuda_ms(lambda: fn(*args), REPS, inner=8)
+            k1_name, kernel, twin, k1_args, kw = k1_calls(fn, args)
+            live = (torch.arange(k1_args[-1] * LANES, device=args[4].device)
+                    < args[4][:, :, None].long())
+            _err, (syms, _used) = compare(kernel, twin, k1_args, kw, live)
+            forms = [(k1_name, kernel, k1_args, kw)]
+            const_vals, raw_vals, heads = args[5], args[6], args[7]
+            fkw = fn.keywords
+            if fn.func is _decode_fuse8:
+                bulk, tail_block = fuse8_planes(
+                    syms, B=1, G=fkw['G'], k=fkw['k'], tp=fkw['tp'],
+                    tail=fkw['tail'])
+                form, kernel, twin, f_args = finalize_call(
+                    bulk, tail_block, heads, const_vals[:, 0])
+                f_kw = {'n_samples': SR}
+                compare(kernel, twin, f_args, f_kw)
+                forms.append((form, kernel, f_args, f_kw))
+            else:
+                lay = fkw['lay']
+                p_args = tuple(generic_planes(syms, const_vals, raw_vals,
+                                              lay)) + (heads,)
+                p_kw = {'n_samples': SR, 'zigzag': lay.zigzag}
+                compare(dd.cumsum_time_transposed_planes,
+                        dd.cumsum_time_transposed_planes_ref, p_args, p_kw)
+                forms.append(('scan_transposed planes int16, head-seeded '
+                              '(K4)', dd.cumsum_time_transposed_planes,
+                              p_args, p_kw))
+            kernels = []
+            for form, kernel, k_args, k_kw in forms:
+                got = kernel(*k_args, **k_kw)
+                nbytes, ops = work(KERNELS[form][0], k_args, got)
+                del got
+                kernels.append({
+                    'name': form, 'groups': args[0].shape[0],
+                    'ms': cuda_ms(lambda: kernel(*k_args, **k_kw), REPS,
+                                  inner=8),
+                    'bound_ms': 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                          ops / ALU_OPS_PER_S),
+                    'max_abs_err': 0})
+            out[name] = {'batch_chunks': 1, 'staged_ms': staged_ms,
+                         'gbps': arr.nbytes / 1e6 / staged_ms,
+                         'kernels': kernels}
+            log('i. staged decode %s at B=1 (%d groups): %.4f ms, %.3f GB/s '
+                'of decoded output; %s' % (
+                    name, args[0].shape[0], staged_ms,
+                    arr.nbytes / 1e6 / staged_ms, '; '.join(
+                        '%s %.4f ms (bound %.4f), equal to its twin'
+                        % (k['name'], k['ms'], k['bound_ms'])
+                        for k in kernels)))
+        finally:
+            r.close()
+    return out
+
+
 def stage_breakdown(rec):
     """Host clock of the decode's layers over the whole file, one batch:
     parse, pack + upload, kernels, audit + fetch."""
@@ -1631,6 +2412,7 @@ def time_scan_shapes():
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA GPU is visible; nothing was run.',
               file=sys.stderr)
@@ -1670,9 +2452,21 @@ def main():
         % (native.library_path().name, native_s))
 
     workdir = Path(tempfile.mkdtemp(prefix='mtscomp_smoke_'))
+    phase_s, clock = {'a-b build': time.perf_counter() - t_start}, [
+        time.perf_counter()]
+
+    def done(label):
+        """Close the phase ``label``: its host-clock seconds."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        phase_s[label] = now - clock[0]
+        clock[0] = now
+
     try:
-        recs = {name: Recording(workdir, name) for name in RECORDINGS}
+        recs = make_recordings(workdir)
+        done('d recordings')
         calls, staged = check_kernels(recs)
+        check_single_chunk_forms(recs)
         check_edge_cases()
         check_scan_edge_cases()
         check_finalize_edge_cases()
@@ -1684,10 +2478,21 @@ def main():
             if recs[name].expect is not None:
                 recs[name].staged()[0].close()    # checks its layout
         check_small_geometries(workdir)
+        done('c kernels against twins')
         end_to_end, counts_by_path = drive_paths(recs)
         check_audit(staged)
+        done('e-h decode paths')
+        counts_by_path.update(drive_window_paths(recs))
+        check_window_audit(recs)
+        done('w windows')
+        multi = check_multi(workdir, recs)
+        bounded = check_bounded_batches(recs['int16_385ch'])
+        done('m, F3')
         compress_s, encode_counts = drive_encode_paths(recs)
         counts_by_path.update(encode_counts)
+        done('k encode paths')
+        check_tools(workdir, recs)
+        done('t tools')
         stagings = time_staged(recs, staged)
         del staged
         staged_encode = time_encode(encoded)
@@ -1700,8 +2505,14 @@ def main():
         del calls
         scan_shapes = time_scan_shapes()
         finalize_channels = time_finalize_channels()
+        done('i timings, bulk paths and kernels')
+        single_chunk = time_single_chunk(recs)
+        windows_ms = time_windows(recs)
+        routes_s = time_routes(recs)
+        done('i timings, windows and routes')
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log('seconds by phase (host clock): %s' % json.dumps(rounded(phase_s)))
 
     require('jax' not in sys.modules, 'the port loaded JAX')
     require(not any(m.split('.')[0] == 'mtscomp_tpu' for m in sys.modules),
@@ -1709,8 +2520,14 @@ def main():
     # The summary sits next to the last line, so that a log that keeps
     # only the end of the output still holds every number.
     log(json.dumps(rounded({'build_s': build_s, 'native_build_s': native_s,
+                            'phase_s': phase_s,
                             'ptxas': resources, 'dynamic_smem': smem,
-                            'end_to_end': end_to_end, 'staged': stagings,
+                            'end_to_end': end_to_end,
+                            'to_array_routes_s': routes_s,
+                            'windows_ms': windows_ms,
+                            'single_chunk': single_chunk,
+                            'decompress_multi': multi,
+                            'bounded_batches': bounded, 'staged': stagings,
                             'layers_s': layers, 'compress_s': compress_s,
                             'staged_encode': staged_encode,
                             'encode_layers_s': enc_layers,

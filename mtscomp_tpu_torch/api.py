@@ -12,7 +12,11 @@ device routing replaced by the port's:
 - ``Reader`` decodes bulk reads of ans files (``to_array``, ``tofile``)
   through the port's batched decode on its ``device``, and
   ``to_tensor`` leaves the decoded samples there. Random-access
-  windows and column reads stay on the host codec.
+  windows (``r[i0:i1]``, ``r[i]``) decode the covering chunks on the
+  device too, keep them there in an LRU
+  (:class:`~.parallel.pipeline.DeviceChunkCache`) and fetch the window
+  alone; column reads (``r[i0:i1, cols]`` of few channels) stay on the
+  host codec.
 
 Everything else (memmapped input, chunking, the transform probe,
 adaptive windows, the double-buffered write-back with its two SHA1
@@ -38,8 +42,9 @@ from .format import (build_cmeta, compute_chunk_bounds, read_cmeta,
 from .io_host import load_raw_data, pread_exact, default_compressed_paths
 from .ops.delta import diff_along_axis, cumsum_along_axis
 from .parallel import pipeline
-from .parallel.pipeline import (DeviceBatchEncoder, MIN_DEVICE_SUBBATCH,
-                                decompress_to_array, decompress_to_tensor)
+from .parallel.pipeline import (DeviceBatchEncoder, DeviceChunkCache,
+                                MIN_DEVICE_SUBBATCH, decompress_to_array,
+                                decompress_to_tensor)
 from .utils.misc import Bunch, clip, logger, progress
 
 
@@ -678,6 +683,8 @@ class Reader:
     batched decode on ``device`` (the ``device`` key: ``'cuda'``, or
     ``'cpu'`` for the plain twins; ``'none'`` keeps them on the host
     codec), and ``to_tensor`` returns decoded samples on the device.
+    Slice and row reads of ans files go the same way, chunk by chunk,
+    through a device-resident LRU of decoded chunks; ``close`` drops it.
     """
 
     def __init__(self, **kwargs):
@@ -689,6 +696,8 @@ class Reader:
         self.check_after_decompress = self.config.check_after_decompress
         #: Set by :meth:`open`, once the file's algorithm is known.
         self.device = None
+        #: Decoded chunks on the device, for window reads (made on demand).
+        self._dev_cache = None
         self._chunk_decode_threads = max(1, int(self.config.n_threads))
 
     def open(self, cdata, cmeta=None):
@@ -733,6 +742,7 @@ class Reader:
         self.ndim = 2
         self.batch_size = max(1, int(self.config.n_threads))
         self.n_batches = math.ceil(self.n_chunks / self.batch_size)
+        self._dev_cache = None
         self._owns_fd = isinstance(cdata, (str, Path))
         if self._owns_fd:
             if Path(cdata).suffix in ('.bin', '.dat'):  # pragma: no cover
@@ -1001,10 +1011,30 @@ class Reader:
             self.pool = None
             self._chunk_decode_threads = max(1, int(self.config.n_threads))
 
-    def _use_device(self):
-        """Whether bulk decodes go through the port's batched decode:
-        ans files, unless ``device='none'``."""
+    def _use_device(self, window=None):
+        """Whether decodes go through the port's device pipeline.
+
+        ``window=None`` asks about bulk decodes, ``window=(i0, i1)``
+        about one random-access read. Both follow the device the file
+        was opened with: an ans file on a resolved device (``'cuda'``,
+        ``'cuda:N'``, ``'cpu'``, or ``'auto'`` that found a GPU) decodes
+        there; zlib files and ``device='none'`` stay on the host codec.
+        ``window`` is the JAX package's signature and is not read yet:
+        its ``'auto'`` weighs a measured link against the host codec for
+        each window, and the port has no such cost model.
+        """
         return self.algorithm == 'ans' and self.device is not None
+
+    def _device_window(self, i0, i1):
+        """Random-access window via the device chunk cache; None for the
+        host path: a file that does not decode on a device, or a chunk
+        the batched decode declines before staging it (8-byte dtypes, a
+        foreign byte order). An error of the device decode propagates."""
+        if not self._use_device(window=(i0, i1)):
+            return None
+        if self._dev_cache is None:
+            self._dev_cache = DeviceChunkCache(self)
+        return self._dev_cache.read_window(i0, i1)
 
     def _column_window(self, rows, cols):
         """``r[rows, cols]`` via column-restricted decode (None = fall
@@ -1090,6 +1120,33 @@ class Reader:
         else:
             decoded = dict(self._decompress_chunk(i) for i in ids)
         return np.concatenate([decoded[i] for i in ids], axis=0)
+
+    def decoded_batches(self):
+        """Decode the whole file a bounded batch at a time, for passes
+        that keep nothing (``verify_file``, ``transcode``): yields lists
+        of ``(chunk_idx, (n, C) array)`` in chunk order. An ans file on a
+        device decodes there, ``batch_chunks`` chunks a batch (at least 8
+        when the configuration names none); other files, and
+        ``device='none'``, on the host codec, :meth:`bounded_batch_size`
+        chunks a batch.
+        """
+        use_device = self._use_device()
+        batch = self.bounded_batch_size()
+        if use_device:
+            batch = int(self.config.batch_chunks) or max(batch, 8)
+        for first in range(0, self.n_chunks, batch):
+            ids = range(first, min(first + batch, self.n_chunks))
+            if use_device:
+                block = self.to_array(ids[0], ids[-1], writable=False)
+                n0 = self.chunk_bounds[first]
+                yield [(i, block[self.chunk_bounds[i] - n0:
+                                 self.chunk_bounds[i + 1] - n0])
+                       for i in ids]
+            elif hasattr(self.codec, 'decode_batch'):
+                decoded = self._decompress_chunks_batch(ids)
+                yield [(i, decoded[i]) for i in ids]
+            else:  # pragma: no cover - both built-in codecs batch
+                yield [self._decompress_chunk(i) for i in ids]
 
     def to_tensor(self, first_chunk=0, last_chunk=None):
         """Chunks [first, last] as one (n, C) tensor on the reader's
@@ -1228,6 +1285,15 @@ class Reader:
             i1 = self._validate_index(item.stop, self.n_samples)
             if i1 <= i0:
                 return fallback
+            # Non-positive steps take the host path so both routes
+            # behave identically (the reference supports positive steps
+            # only, mtscomp.py:831).
+            win = self._device_window(i0, i1) \
+                if (item.step or 1) > 0 else None
+            if win is not None:
+                out = win[::item.step or 1, :]
+                assert out.shape[0] == len(range(i0, i1, item.step or 1))
+                return out
             first_chunk, last_chunk = self._chunks_for_interval(i0, i1)
             single = None
             n_span = last_chunk - first_chunk + 1
@@ -1297,6 +1363,8 @@ class Reader:
         # closing it would break the caller.
         if self.cdata and getattr(self, '_owns_fd', True):
             self.cdata.close()
+        # The window cache holds decoded chunks in device memory.
+        self._dev_cache = None
 
     def __del__(self):
         try:

@@ -53,6 +53,7 @@ host codec's. Chunks the device route leaves to the host codec (a dtype
 declines) are counted (``host_encoded_chunks``).
 """
 
+import collections
 import dataclasses
 import functools
 import struct
@@ -66,6 +67,7 @@ from ..codec.ans import (MODE_CONST, MODE_RANS, MODE_RAW, peek_desc,
                          segment_counts)
 from ..codec.ans import seg_freqs as ans_seg_freqs
 from ..device import resolve_device
+from ..format import decode_identity
 from ..io_host import pread_exact
 from ..models import rans
 from ..models.rans import GROUP_ROWS, LANES, RANS_L
@@ -82,6 +84,7 @@ from ..ops.rans_encode import (encode_groups, left_align,
                                pack_encoder_tables, symbol_capacity)
 from ..ops.tables import WINDOW_ROWS, pack_device_tables
 from ..utils.misc import logger
+from ..utils.trace import phase
 
 #: Chunks decoded on the host codec because ``supported()`` declined
 #: their batch (the codec's documented semantics, as in the JAX package).
@@ -493,9 +496,14 @@ class DeviceBatchDecoder:
         Raises IOError when any group's stream-word consumption differs
         from its container's stored length (corrupt payload).
         """
-        fn, args = self.pack(parsed_list, n_samples)
-        out, used = fn(*args)
-        check_words_used(parsed_list, used)
+        with phase('decode.pack'):
+            fn, args = self.pack(parsed_list, n_samples)
+        with phase('decode.device'):
+            out, used = fn(*args)
+        with phase('decode.fetch'):
+            # Fetches the (groups,) word counts: the call's one wait for
+            # the device.
+            check_words_used(parsed_list, used)
         return out
 
     def decode_batch(self, parsed_list, n_samples):
@@ -665,18 +673,56 @@ def _read_payload(reader, idx):
     return pread_exact(reader.cdata, length, start)
 
 
-def _uniform_batches(reader, chunk_ids, n_samples, dec):
+#: Most decoded bytes one decode batch may hold when the configuration
+#: names no ``batch_chunks``: 1 GiB. A batch stages, per decoded byte, at
+#: most about six bytes on the device at once: the word streams (under 1,
+#: the file's ratio, plus the window rows of ``pack``), K1's symbol rows
+#: (1/2 with one coded byte plane, 1 with all), the decoded samples (1)
+#: and, on the routes outside the fused kernels, the plane combine, the
+#: inverse zigzag and one carried scan's copy (1 each). So a batch at the
+#: bound holds at most about 6 GiB of an 80 GB card (an estimate from the
+#: code; measured on an H100 with ``chip_smoke.py``'s bounded-batch phase,
+#: the fused route's peak was 1,566.9 MB for 739.2 MB decoded, 2.1 bytes
+#: a decoded byte), a 32-chunk batch of 1-s 385-channel int16 chunks
+#: (0.74 GB decoded) stays one batch, and a 30-min recording of such
+#: chunks decodes in 40 batches of 46.
+DECODE_BATCH_BYTES = 1 << 30
+
+
+def batch_limit(reader, n_samples):
+    """Most chunks of ``n_samples`` samples in one decode batch: the
+    configuration's ``batch_chunks`` when set, else as many as decode to
+    :data:`DECODE_BATCH_BYTES` (at least one)."""
+    chunk_bytes = max(n_samples * reader.n_channels * reader.dtype.itemsize,
+                      1)
+    return int(reader.config.batch_chunks) \
+        or max(1, DECODE_BATCH_BYTES // chunk_bytes)
+
+
+def _uniform_batches(readers, chunk_ids, n_samples, dec):
     """Cut a run into batches of consecutive chunks that ``supported()``
-    accepts together: ``[(chunk ids, parsed chunks), ...]``."""
-    batches = []
+    accepts together, each of at most :func:`batch_limit` chunks over
+    all ``readers`` (several for a multi-probe decode: every batch then
+    holds the same chunks of each). Yields ``(chunk ids, parsed chunks)``
+    as each batch closes, so only one batch's payloads are held at a
+    time; the parsed chunks are reader-major, each reader's in id order.
+    """
+    limit = max(1, batch_limit(readers[0], n_samples) // len(readers))
+    ids, cols = [], []
+
+    def batch():
+        return ids, [col[k] for k in range(len(readers)) for col in cols]
+
     for idx in chunk_ids:
-        parsed = reader.codec.parse(_read_payload(reader, idx))
-        if batches and dec.supported([batches[-1][1][0], parsed], n_samples):
-            batches[-1][0].append(idx)
-            batches[-1][1].append(parsed)
-        else:
-            batches.append(([idx], [parsed]))
-    return batches
+        col = [r.codec.parse(_read_payload(r, idx)) for r in readers]
+        if ids and (len(ids) >= limit or not dec.supported(
+                [cols[0][0]] + col, n_samples)):
+            yield batch()
+            ids, cols = [], []
+        ids.append(idx)
+        cols.append(col)
+    if ids:
+        yield batch()
 
 
 def _decode_runs(reader, first_chunk, last_chunk, device):
@@ -687,7 +733,9 @@ def _decode_runs(reader, first_chunk, last_chunk, device):
     further into mode-uniform batches (:func:`_uniform_batches`), so a
     file whose plane modes change between chunks (a quiet chunk codes
     its high byte CONST, a busy one rANS) still decodes on the device;
-    the JAX package sends such a run to the host codec. Yields ``(row
+    the JAX package sends such a run to the host codec. No batch holds
+    more chunks than :func:`batch_limit` allows, and a batch's staged
+    tensors are dropped before the next is staged. Yields ``(row
     offset, block)``: a (n, C) device tensor in the coding dtype's bits,
     or a host ndarray in the reader's dtype for batches that
     ``supported()`` sends to the host codec.
@@ -712,13 +760,16 @@ def _decode_runs(reader, first_chunk, last_chunk, device):
     pos = 0
     for run_ids, (ns, _desc) in runs:
         dec = DeviceBatchDecoder(reader, device) if ans else None
-        batches = (_uniform_batches(reader, run_ids, ns, dec) if ans
+        batches = (_uniform_batches([reader], run_ids, ns, dec) if ans
                    else [(run_ids, None)])
         for chunk_ids, parsed in batches:
             n_span = len(chunk_ids) * ns
             if parsed is not None and dec.supported(parsed, ns):
-                yield pos, dec.decode_tensor(parsed, ns).reshape(
+                block = dec.decode_tensor(parsed, ns).reshape(
                     n_span, reader.n_channels)
+                del parsed
+                yield pos, block
+                del block
             else:
                 logger.debug("Device decode unsupported for chunks %s; "
                              "using host path.", chunk_ids)
@@ -741,6 +792,14 @@ def _span(reader, first_chunk, last_chunk):
 def _torch_dtype(dtype):
     return torch.from_numpy(np.empty(0, np.dtype(dtype).newbyteorder('='))
                             ).dtype
+
+
+def _as_user_dtype(arr, reader):
+    """A fetched block (the coding dtype's bits, ``_BITS``) as the
+    reader's dtype: zero-copy views; only bitcast float files and
+    unsigned dtypes differ."""
+    code = np.dtype(getattr(reader, 'code_dtype', reader.dtype))
+    return arr.view(code).view(reader.dtype)
 
 
 def decompress_to_array(reader, first_chunk=0, last_chunk=None, out=None,
@@ -766,10 +825,9 @@ def decompress_to_array(reader, first_chunk=0, last_chunk=None, out=None,
                          % (reader.dtype, shape, first_chunk, last_chunk,
                             getattr(out, 'dtype', type(out).__name__),
                             getattr(out, 'shape', '')))
-    code = np.dtype(getattr(reader, 'code_dtype', reader.dtype))
     for pos, block in _decode_runs(reader, first_chunk, last_chunk, device):
         if torch.is_tensor(block):
-            block = block.cpu().numpy().view(code).view(reader.dtype)
+            block = _as_user_dtype(block.cpu().numpy(), reader)
         if out is None and block.shape[0] == total:
             return block
         if out is None:
@@ -798,7 +856,154 @@ def decompress_to_tensor(reader, first_chunk=0, last_chunk=None,
             out = torch.empty((total, reader.n_channels), dtype=dtype,
                               device=device)
         out[pos:pos + block.shape[0]].copy_(block)
+        del block          # only ``out`` outlives the batch
     return out
+
+
+class DeviceChunkCache:
+    """Random-access reads: decoded chunks cached on the reader's device.
+
+    ``read_window`` decodes the covering chunk(s) on the device, one
+    chunk a call (a batch of one through :class:`DeviceBatchDecoder`),
+    keeps the decoded (ns, C) tensors device-resident in a small LRU,
+    slices on the device and copies only the requested window to the
+    host: the host-side LRU chunk cache of ``Reader.read_chunk`` with the
+    decode and the slicing moved onto the device. ``capacity`` defaults
+    to the reader's ``cache_size``.
+    """
+
+    def __init__(self, reader, capacity=None):
+        self.reader = reader
+        self.capacity = capacity or reader.cache_size
+        #: chunk_idx -> device tensor (ns, C), least recently used first.
+        self._cache = collections.OrderedDict()
+
+    def _chunk(self, idx):
+        """Chunk ``idx`` decoded on the device, or None for a chunk the
+        batched decode declines (8-byte dtypes, a foreign byte order):
+        decided by ``supported()`` before anything is staged. Every
+        error of the decode itself propagates."""
+        if idx in self._cache:
+            self._cache.move_to_end(idx)
+            return self._cache[idx]
+        r = self.reader
+        ns = r.chunk_bounds[idx + 1] - r.chunk_bounds[idx]
+        parsed = [r.codec.parse(_read_payload(r, idx))]
+        dec = DeviceBatchDecoder(r, r.device)
+        if not dec.supported(parsed, ns):
+            return None
+        out = dec.decode_tensor(parsed, ns)[0]      # (ns, C), stays put
+        self._cache[idx] = out
+        while len(self._cache) > self.capacity:
+            self._cache.popitem(last=False)
+        return out
+
+    def clear(self):
+        """Drop every cached chunk (and the device memory it holds)."""
+        self._cache.clear()
+
+    def read_window(self, i0, i1):
+        """Decoded samples [i0, i1) as a fresh writable host ndarray in
+        the reader's dtype; None, with the window's chunks added to
+        ``host_fallback_chunks``, when the batched decode declines one of
+        them (the caller then reads the window through the host codec)."""
+        global host_fallback_chunks
+        r = self.reader
+        first, last = r._chunks_for_interval(i0, max(i0, i1 - 1))
+        parts = []
+        for idx in range(first, last + 1):
+            chunk = self._chunk(idx)
+            if chunk is None:
+                logger.debug("Device decode unsupported for chunk %d; "
+                             "using host path.", idx)
+                host_fallback_chunks += last - first + 1
+                return None
+            c0, c1 = r.chunk_bounds[idx], r.chunk_bounds[idx + 1]
+            parts.append(chunk[max(i0, c0) - c0:min(i1, c1) - c0])
+        dev = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        # A row slice of a cached chunk is a view of it: ``contiguous``
+        # and ``cpu`` copy the window alone, into host memory the caller
+        # owns. On the CPU device ``cpu`` copies nothing, so a one-chunk
+        # window is cloned: never a view of a cached tensor.
+        if dev.device.type == 'cpu':
+            win = dev.clone() if len(parts) == 1 else dev
+        else:
+            win = dev.contiguous().cpu()
+        return _as_user_dtype(win.numpy(), r)
+
+
+def decompress_multi(readers, mesh=None, first_chunk=0, last_chunk=None):
+    """Decode the same chunk range of several recordings (multi-probe).
+
+    The probes' chunk batches are concatenated and decoded in one device
+    call on the first reader's device. All probes must share geometry
+    (channels, chunk sizes, dtype, plane modes). Returns a list of
+    ``(n_samples, n_channels)`` arrays, one per reader. A range whose
+    merged batch would exceed :func:`batch_limit` is cut by chunk index:
+    each call decodes the same few chunks of every probe.
+
+    Falls back to per-reader ``to_array`` (:func:`decompress_to_array`
+    on each reader's own device) when the batches cannot be merged. ``mesh`` (the JAX package's sharding of
+    the merged batch across chips) is not ported: ROADMAP Queue 1 item
+    6; any value but None raises NotImplementedError.
+    """
+    assert readers
+    if mesh is not None:
+        raise NotImplementedError(
+            "decompress_multi(mesh=...) is not ported yet (ROADMAP Queue 1 "
+            "item 6: mesh= / parallel/mesh.py); pass mesh=None.")
+    last = readers[0].n_chunks - 1 if last_chunk is None else last_chunk
+    n_chunks = last - first_chunk + 1
+    if not 0 <= first_chunk <= last:
+        raise ValueError(
+            "decompress_multi: invalid chunk range [%d, %d]"
+            % (first_chunk, last))
+    for k, r in enumerate(readers):
+        # One common chunk range per call is the contract (the batch is
+        # reshaped (n_readers, n_chunks*ns)).
+        if r.n_chunks <= last:
+            raise ValueError(
+                "decompress_multi decodes one common chunk range, but "
+                "reader %d has %d chunks and chunks [%d, %d] were "
+                "requested; pass last_chunk to restrict the range."
+                % (k, r.n_chunks, first_chunk, last))
+    r0 = readers[0]
+    # Probes must agree on everything the decoder derives from
+    # readers[0]: the full decode identity (incl. the v2 sidecar
+    # extensions time_diff_order/float_bitcast, which supported() can
+    # never see: they are sidecar-only, not in the chunk payloads).
+    # Fallback, never corrupt.
+    ident0 = decode_identity(r0.cmeta)
+    mergeable = (r0.algorithm == 'ans' and r0.device is not None and all(
+        r.algorithm == 'ans' and decode_identity(r.cmeta) == ident0
+        for r in readers))
+    ns = None
+    if mergeable:
+        sizes = {r.chunk_bounds[i + 1] - r.chunk_bounds[i]
+                 for r in readers for i in range(first_chunk, last + 1)}
+        mergeable = len(sizes) == 1
+        ns = sizes.pop()
+    if mergeable:
+        dec = DeviceBatchDecoder(r0, r0.device)
+        outs = None
+        for ids, parsed in _uniform_batches(
+                readers, range(first_chunk, last + 1), ns, dec):
+            if not dec.supported(parsed, ns):
+                break
+            block = _as_user_dtype(dec.decode_batch(parsed, ns), r0).reshape(
+                len(readers), len(ids) * ns, -1)
+            del parsed
+            if len(ids) == n_chunks:
+                return list(block)
+            if outs is None:
+                outs = [np.empty((n_chunks * ns, r.n_channels), r.dtype)
+                        for r in readers]
+            row = (ids[0] - first_chunk) * ns
+            for out, rows in zip(outs, block):
+                out[row:row + len(ids) * ns] = rows
+        else:
+            return outs
+    return [r.to_array(first_chunk, last) for r in readers]
 
 
 # --- encode ---------------------------------------------------------------
@@ -963,7 +1168,8 @@ class DeviceBatchEncoder:
         transform = _build_transform_fn(
             B, T, C, str(self.dtype), self.order, self.do_time_diff,
             self.do_spatial_diff, True, self.diff_order)
-        planes_d, hists_d, head_d = transform(x)
+        with phase('encode.transform'):
+            planes_d, hists_d, head_d = transform(x)
         hists = hists_d.cpu().numpy()
         heads = head_d.cpu().numpy()
         n_coded = (T - 1) * C
@@ -989,8 +1195,9 @@ class DeviceBatchEncoder:
         # zero pads) -- bit-identical to the host codec's bincounts.
         ch_hists = None
         if seg_mode and n_stream > seg:
-            ch_hists = histogram256(planes_d.view(B * P * C, tcs)).view(
-                B, P, C, 256).cpu().numpy()
+            with phase('encode.seghist'):
+                ch_hists = histogram256(planes_d.view(B * P * C, tcs)).view(
+                    B, P, C, 256).cpu().numpy()
         n_segs = -(-n_stream // seg) if aligned else 0
         t0 = self._mark('transform', t0)
 
@@ -1090,10 +1297,12 @@ class DeviceBatchEncoder:
                     torch.from_numpy(counts_arr).to(dev), cap)
             self.last_kernel_args = args
             t0 = self._mark('gather_stage', t0)
-            states_d, words_d, nw_d = encode_groups(*args)
+            with phase('encode.kernel'):
+                states_d, words_d, nw_d = encode_groups(*args)
             t0 = self._mark('k6', t0)
-            flat, n_words = left_align(words_d, nw_d)
-            states = states_d.cpu().numpy().view(np.uint32)
+            with phase('encode.align'):
+                flat, n_words = left_align(words_d, nw_d)
+                states = states_d.cpu().numpy().view(np.uint32)
             t0 = self._mark('align_fetch', t0)
             offs = np.concatenate([[0], np.cumsum(n_words)])
             for b in range(B):

@@ -322,3 +322,141 @@ def test_add_default_handler_defaults_to_the_package_logger():
         assert mt_misc.logger.name == 'mtscomp_tpu_torch'
     finally:
         mt_misc.logger.removeHandler(h)
+
+
+# --- bounded decode batches -------------------------------------------------
+
+from mtscomp_tpu_torch.parallel import pipeline as mt_pipeline  # noqa: E402
+
+
+@pytest.fixture
+def decode_calls(monkeypatch):
+    """Chunks per ``decode_tensor`` call of the port, in call order."""
+    calls = []
+    real = mt_pipeline.DeviceBatchDecoder.decode_tensor
+
+    def spy(self, parsed_list, n_samples):
+        calls.append(len(parsed_list))
+        return real(self, parsed_list, n_samples)
+
+    monkeypatch.setattr(mt_pipeline.DeviceBatchDecoder, 'decode_tensor', spy)
+    return calls
+
+
+def _ten_chunks(workdir):
+    arr = _source(seed=8, n=10)
+    cbin, ch = _compress(workdir, arr, 'ans', device='none')
+    return arr, cbin, ch
+
+
+BULK_CALLS = {
+    'to_array': lambda rs: [rs[0].to_array()],
+    'to_array_span': lambda rs: [rs[0].to_array(0, rs[0].n_chunks - 1)],
+    'to_tensor': lambda rs: [rs[0].to_tensor().numpy()],
+    'decompress_to_array_out': lambda rs: [mt.decompress_to_array(
+        rs[0], out=np.empty(rs[0].shape, rs[0].dtype), device='cpu')],
+    'decompress_multi_one_probe': lambda rs: mt.decompress_multi(rs[:1]),
+    'decompress_multi_two_probes': lambda rs: mt.decompress_multi(rs),
+}
+
+
+@pytest.mark.parametrize('call', sorted(BULK_CALLS))
+def test_batch_chunks_bounds_every_decode_batch(workdir, decode_calls, call):
+    """``batch_chunks=4``: a 10-chunk file decodes in batches of 4, 4 and
+    2 chunks (two probes: 2 chunks of each a batch), and gives the bytes
+    of the one-batch call."""
+    arr, cbin, ch = _ten_chunks(workdir)
+
+    def run(**kw):
+        readers = [mt.decompress(cbin, ch, device='cpu', quiet=True, **kw)
+                   for _ in range(2)]
+        del decode_calls[:]
+        try:
+            return BULK_CALLS[call](readers), list(decode_calls)
+        finally:
+            for r in readers:
+                r.close()
+
+    whole, calls = run()
+    assert calls == [20 if call.endswith('two_probes') else 10]
+    bounded, calls = run(batch_chunks=4)
+    assert calls == ([4] * 5 if call.endswith('two_probes') else [4, 4, 2])
+    assert len(bounded) == len(whole)
+    for got, want in zip(bounded, whole):
+        assert got.dtype == want.dtype == arr.dtype
+        assert got.tobytes() == want.tobytes() == arr.tobytes()
+
+
+@pytest.mark.parametrize('call', ['to_array', 'to_tensor',
+                                  'decompress_multi_two_probes'])
+def test_default_bound_cuts_a_run_by_decoded_bytes(workdir, decode_calls,
+                                                   monkeypatch, call):
+    """No ``batch_chunks``: a batch holds as many chunks as decode to
+    ``DECODE_BATCH_BYTES``, at least one."""
+    arr, cbin, ch = _ten_chunks(workdir)
+    chunk_bytes = T * C * 2
+    assert mt_pipeline.DECODE_BATCH_BYTES == 1 << 30
+    # The bound that keeps a 32-chunk batch of 1-s 385-channel int16
+    # chunks whole.
+    assert mt_pipeline.DECODE_BATCH_BYTES // (30000 * 385 * 2) >= 32
+    readers = [mt.decompress(cbin, ch, device='cpu', quiet=True)
+               for _ in range(2)]
+    try:
+        for bound, want in ((3 * chunk_bytes + 5, [3, 3, 3, 1]),
+                            (chunk_bytes - 1, [1] * 10)):
+            monkeypatch.setattr(mt_pipeline, 'DECODE_BATCH_BYTES', bound)
+            assert mt_pipeline.batch_limit(readers[0], T) == want[0]
+            del decode_calls[:]
+            outs = BULK_CALLS[call](readers)
+            if call.endswith('two_probes'):
+                per = max(1, want[0] // 2)
+                assert decode_calls == [2 * per] * (10 // per)
+            else:
+                assert decode_calls == want
+            for got in outs:
+                assert got.tobytes() == arr.tobytes()
+    finally:
+        for r in readers:
+            r.close()
+
+
+def test_tofile_keeps_its_own_batching(workdir, decode_calls):
+    """``tofile`` cuts the file by ``batch_chunks`` itself: each of its
+    spans is then one batch."""
+    arr, cbin, ch = _ten_chunks(workdir)
+    r = mt.decompress(cbin, ch, device='cpu', quiet=True, batch_chunks=4,
+                      check_after_decompress=False)
+    try:
+        r.tofile(workdir / 'o.bin')
+        assert decode_calls == [4, 4, 2]
+        assert (workdir / 'o.bin').read_bytes() == arr.tobytes()
+    finally:
+        r.close()
+
+
+@pytest.mark.parametrize('writable', [True, False])
+def test_one_block_span_is_returned_without_a_copy(workdir, decode_calls,
+                                                   writable):
+    """A span that decodes as one batch comes back as the fetched buffer
+    itself (its memory is the fetched tensor's, not a destination
+    allocated here); a span cut in batches lands in one destination."""
+    arr, cbin, ch = _ten_chunks(workdir)
+
+    def root(a):
+        return a if a.base is None else a.base
+
+    r = mt.decompress(cbin, ch, device='cpu', quiet=True)
+    try:
+        got = r.to_array(writable=writable)
+        assert decode_calls == [10] and got.flags.writeable
+        assert not root(got).flags.owndata       # the tensor's storage
+        assert np.array_equal(got, arr)
+    finally:
+        r.close()
+    r = mt.decompress(cbin, ch, device='cpu', quiet=True, batch_chunks=4)
+    try:
+        got = r.to_array(writable=writable)
+        assert root(got).flags.owndata and got.flags.writeable
+        assert np.array_equal(got, arr)
+    finally:
+        r.close()

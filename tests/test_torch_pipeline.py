@@ -258,9 +258,11 @@ def test_cuda_device_raises_without_a_gpu(tmp_path_, monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path_):
-    """Compressing and decoding with the port loads neither JAX nor any
-    module of the JAX package (this test process has both loaded
-    already, so it runs in a fresh one)."""
+    """Compressing and decoding with the port, reading a window,
+    verifying, transcoding, streaming, decoding two probes and running a
+    command of its CLI load neither JAX nor any module of the JAX
+    package (this test process has both loaded already, so it runs in a
+    fresh one)."""
     script = textwrap.dedent("""
         import sys
         import numpy as np
@@ -279,7 +281,37 @@ def test_port_never_imports_jax(tmp_path_):
                           quiet=True)
         assert np.array_equal(r.to_array(), arr)
         assert mt.launch_counts()['host_fallback_chunks'] == 0
+        assert np.array_equal(r[900:1100], arr[900:1100])   # a window
+        assert r._dev_cache is not None
+        r2 = mt.decompress(d + '/s.cbin', d + '/s.ch', device='cpu',
+                           quiet=True)
+        for out in mt.decompress_multi([r, r2]):
+            assert np.array_equal(out, arr)
         r.close()
+        r2.close()
+        assert mt.verify_file(d + '/s.cbin', quiet=True,
+                              device='cpu')['ok']
+        mt.transcode(d + '/s.cbin', out=d + '/z.cbin', algorithm='zlib',
+                     quiet=True, device='cpu')
+        mt.transcode(d + '/z.cbin', out=d + '/a.cbin', algorithm='ans',
+                     quiet=True, device='cpu', ans_seg_log2=12)
+        assert (open(d + '/a.cbin', 'rb').read()
+                == open(d + '/s.cbin', 'rb').read())
+        with mt.StreamWriter(d + '/l.cbin', d + '/l.ch', sample_rate=1000.0,
+                             n_channels=129, dtype='int16',
+                             algorithm='ans') as w:
+            w.append(arr)
+        from mtscomp_tpu_torch.parallel.distributed import compress_multihost
+        compress_multihost(d + '/s.bin', d + '/m.cbin', d + '/m.ch', 2,
+                           sample_rate=1000.0, n_channels=129,
+                           dtype='int16', algorithm='ans', quiet=True,
+                           device='none', ans_seg_log2=12)
+        from mtscomp_tpu_torch import cli
+        from mtscomp_tpu_torch.utils import trace
+        trace.enable_tracing()
+        cli.main(['mtsdecomp', d + '/z.cbin', '-o', d + '/z.bin',
+                  '--device', 'none'])
+        assert open(d + '/z.bin', 'rb').read() == arr.tobytes()
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'mtscomp_tpu')]
         assert not bad, 'loaded %s' % bad
@@ -316,7 +348,7 @@ def test_golden_files(stem):
         assert np.array_equal(rp.to_array(), want)
         assert np.array_equal(rp.to_tensor().numpy(), want)
         assert mt.launch_counts()['host_fallback_chunks'] == 0
-        assert np.array_equal(rp[:], want)           # host windows
+        assert np.array_equal(rp[:], want)           # the chunk cache
     finally:
         rp.close()
 

@@ -78,6 +78,14 @@ m. ``decompress_multi`` of four probes (the four 8-s stretches of the
 F3. ``to_array()`` of the 32-s walk as one batch and with
    ``batch_chunks=8`` (four batches, four K1 launches): the same bytes,
    the peak device memory of both;
+s. sharded, on ``chunk_mesh()`` over every visible card (the width goes
+   in the phase's line; a width-1 time is not a multi-GPU number),
+   counts set to 0 just before each call and read just after:
+   ``decompress_multi(mesh=)`` of phase m's four probes,
+   ``DeviceBatchDecoder.decode_batch(mesh=)`` of a walk, a spiky and a
+   384-channel batch, ``DeviceBatchEncoder.encode_batch(mesh=)`` of a
+   spiky batch: byte-exact against the sources and the host codec, K1
+   (K6) once a shard, each timed against its unsharded call;
 k. encode path by path (the two 32-s files, then the branch files),
    counts set to 0 just before and read just after: compress each
    through ``mtscomp_tpu_torch.compress(..., device='cuda')``, check the
@@ -85,6 +93,15 @@ k. encode path by path (the two 32-s files, then the branch files),
    launched and that no chunk went to the host codec (int32 excepted:
    ``supported()`` declines it, and all its chunks must go there), and
    decode each device-encoded file through the port to its source;
+p. the measured ``'auto'`` route: ``link_profile()`` and
+   ``host_profile()`` measured afresh, the CPU count, and the first-call
+   cost (a fresh child process's first device decode, kernels built);
+   then ``'auto'``'s decision for ``compress()`` of the 32-s walk,
+   ``to_array()`` of both 32-s files and their three ``WINDOWS``
+   uncached, with the port's constants and again with the size gate
+   open: every read and write byte-exact, K1 (K6) launched if and only
+   if the decision said card; after phase i, each decision beside both
+   routes' times of this run (a log line, not a check);
 t. the tools on the card, each command through ``python -m
    mtscomp_tpu_torch.cli`` with ``--device cuda``, one after the other in
    one process of their own that reports after each what it has loaded
@@ -119,7 +136,8 @@ i. time the staged decodes (the batch staged on the card once, CUDA
    (``device='none'``), host clock with a synchronize, median of 8; and
    ``to_array()`` of the 32-s files on both routes in turns.
 
-Then come the host-clock seconds of each phase. The last four lines
+The order of the run: a, b, d, c, e-h, w, m, F3, s, k, p, t, i. Then
+come the host-clock seconds of each phase. The last four lines
 are a JSON summary of the end-to-end and staged timings (with the
 kernel forms no path launches, which are held
 against their twins only), a JSON object with one entry per kernel
@@ -131,6 +149,7 @@ and power limit, and ``{"ok": true, "device": {"platform": "gpu",
 
 import concurrent.futures
 import contextlib
+import hashlib
 import json
 import os
 import shutil
@@ -155,6 +174,7 @@ from mtscomp_tpu_torch.ops import rans_encode as renc
 from mtscomp_tpu_torch.ops.tables import pack_device_tables
 from mtscomp_tpu_torch.parallel import pipeline
 from mtscomp_tpu_torch.parallel.distributed import compress_multihost
+from mtscomp_tpu_torch.parallel.mesh import chunk_mesh
 from mtscomp_tpu_torch.parallel.pipeline import (
     DeviceBatchDecoder, DeviceBatchEncoder, _decode_fuse8, _rans_planes,
     _read_payload, check_words_used, fuse8_planes, generic_elems,
@@ -1723,6 +1743,311 @@ def check_multi(workdir, recs):
             r.close()
 
 
+def multi_probes(workdir, recs):
+    """Phase m's four probes, opened again on the card, and their
+    sources."""
+    readers = [mt.decompress(workdir / ('probe%d.cbin' % i),
+                             workdir / ('probe%d.ch' % i), device=DEVICE,
+                             quiet=True, check_after_decompress=False)
+               for i in range(4)]
+    walk = recs['int16_385ch'].arr
+    n = SHORT_SECONDS * SR
+    return readers, [walk[i * n:(i + 1) * n] for i in range(4)]
+
+
+def check_sharded(workdir, recs):
+    """Phase s: ``chunk_mesh()`` over the visible cards; ``decompress_multi
+    (mesh=)`` on phase m's four probes, ``decode_batch(mesh=)`` on a walk,
+    a spiky and a 384-channel batch and ``encode_batch(mesh=)`` on a spiky
+    batch, counts set to 0 just before each and read just after: byte-
+    exact against the sources and the host codec, K1 (K6) once a shard,
+    each timed against its unsharded call (host clock with a synchronize,
+    in turns). Returns (timings, counts of the sharded calls)."""
+    mesh = chunk_mesh()
+    width = len(mesh)
+    out = {'width': width, 'devices': [str(d) for d in mesh]}
+    counts_all = dict.fromkeys(mt.launch_counts(), 0)
+
+    def sharded_call(label, fn, k_key, want):
+        """Run ``fn`` (the sharded call) with the counts set to 0, hold
+        its launches of ``k_key`` to one a shard; returns its result."""
+        mt.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        counts = mt.launch_counts()
+        require(counts[k_key] == want, '%s launched %s %d times on a mesh '
+                'of %d, expected %d' % (label, k_key, counts[k_key], width,
+                                        want))
+        require(counts['host_fallback_chunks'] == 0
+                and counts['host_encoded_chunks'] == 0,
+                '%s sent chunks to the host codec' % label)
+        for k, v in counts.items():
+            counts_all[k] += v
+        return got
+
+    def turns(sharded, plain, reps=4):
+        """Host-clock ms of the sharded and the unsharded call, median of
+        ``reps``, in turns (plain, sharded, sharded, plain, ...)."""
+        times = {'sharded_ms': [], 'plain_ms': []}
+        for i in range(2 * reps):
+            key = 'plain_ms' if i % 4 in (0, 3) else 'sharded_ms'
+            fn = plain if key == 'plain_ms' else sharded
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[key].append(1e3 * (time.perf_counter() - t0))
+        return {k: float(np.median(v)) for k, v in times.items()}
+
+    readers, arrs = multi_probes(workdir, recs)
+    try:
+        outs = sharded_call(
+            'decompress_multi', lambda: mt.decompress_multi(readers,
+                                                            mesh=mesh),
+            'rans_decode_octet', width)
+        require(all(np.array_equal(o, a) for o, a in zip(outs, arrs)),
+                'decompress_multi(mesh=) differs from the sources')
+        del outs
+        out['decompress_multi'] = dict(turns(
+            lambda: mt.decompress_multi(readers, mesh=mesh),
+            lambda: mt.decompress_multi(readers), reps=2),
+            chunks=4 * SHORT_SECONDS)
+    finally:
+        for r in readers:
+            r.close()
+    B = width * max(1, BATCH // width)
+    for name in ('int16_385ch', 'spiky_int16_385ch', 'int16_384ch'):
+        rec = recs[name]
+        r = rec.reader()
+        try:
+            parsed = [r.codec.parse(_read_payload(r, i)) for i in range(B)]
+            dec = DeviceBatchDecoder(r, DEVICE)
+            got = sharded_call('decode_batch(mesh=) of %s' % name,
+                               lambda: dec.decode_batch(parsed, SR,
+                                                        mesh=mesh),
+                               'rans_decode_octet', width)
+            require(np.array_equal(got.reshape(-1, rec.arr.shape[1]),
+                                   rec.arr[:B * SR]),
+                    '%s: decode_batch(mesh=) differs from the source' % name)
+            del got
+            out['decode_batch ' + name] = dict(turns(
+                lambda: dec.decode_batch(parsed, SR, mesh=mesh),
+                lambda: dec.decode_batch(parsed, SR)), chunks=B)
+        finally:
+            r.close()
+    rec = recs['spiky_int16_385ch']
+    w, x = rec.writer_batch(B)
+    try:
+        enc = DeviceBatchEncoder(w, device=DEVICE)
+        got = sharded_call('encode_batch(mesh=)',
+                           lambda: enc.encode_batch(x, mesh=mesh),
+                           'rans_encode', width)
+        host = [w.codec.encode(w._transform_chunk(c), order=w.chunk_order)
+                for c in x]
+        require(got == host, 'encode_batch(mesh=) differs from the host '
+                'codec')
+        out['encode_batch spiky_int16_385ch'] = dict(turns(
+            lambda: enc.encode_batch(x, mesh=mesh),
+            lambda: enc.encode_batch(x)), chunks=B)
+    finally:
+        w.close()
+    log('s. mesh of %d card(s) %s: decompress_multi (4 probes x %d chunks), '
+        'decode_batch of the walk, the spiky walk and the 384-ch walk and '
+        'encode_batch of the spiky walk (B=%d) byte-exact, K1 / K6 once a '
+        'shard; host clock, sharded against unsharded: %s%s'
+        % (width, out['devices'], SHORT_SECONDS, B, json.dumps(rounded(
+            {k: v for k, v in out.items() if isinstance(v, dict)})),
+           ' (width 1: not a multi-GPU number)' if width == 1 else ''))
+    return out, counts_all
+
+
+#: A fresh process's first device decode (phase p): the port imported,
+#: a reader opened on the card, then one uncached window timed (CUDA
+#: context, the kernel library's load, the first allocations and the
+#: decode), then the same window uncached again.
+FIRST_CALL_CHILD = """
+import hashlib, json, sys, time
+import torch
+import mtscomp_tpu_torch as mt
+cbin, ch, a, n = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+r = mt.decompress(cbin, ch, device='cuda', quiet=True,
+                  check_after_decompress=False)
+t0 = time.perf_counter()
+win = r[a:a + n]
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+r._dev_cache.clear()
+t2 = time.perf_counter()
+again = r[a:a + n]
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+print('FIRST ' + json.dumps({
+    'first_s': t1 - t0, 'again_s': t3 - t2,
+    'sha1': hashlib.sha1(win.tobytes()).hexdigest(),
+    'same': bool((win == again).all()), 'k1': mt.launch_counts()[
+        'rans_decode_octet']}), flush=True)
+"""
+
+
+def first_call(workdir, rec):
+    """Phase p: the first-call cost in a fresh child process, kernels
+    already built (its HOME the work directory)."""
+    a, n = WINDOWS['1s']
+    env = dict(os.environ, HOME=str(workdir),
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    proc = subprocess.run(
+        [sys.executable, '-c', FIRST_CALL_CHILD, str(rec.cbin), str(rec.ch),
+         str(a), str(n)], cwd=str(workdir), env=env, capture_output=True,
+        text=True, timeout=300)
+    require(proc.returncode == 0 and 'FIRST ' in proc.stdout,
+            'the first-call child failed (%d): %s'
+            % (proc.returncode, proc.stderr[-2000:]))
+    got = json.loads(proc.stdout.split('FIRST ', 1)[1])
+    require(got['sha1'] == hashlib.sha1(rec.arr[a:a + n].tobytes())
+            .hexdigest() and got['same'] and got['k1'] == 2,
+            'the first-call child read a wrong window: %s' % got)
+    return got
+
+
+def auto_reads(recs, label):
+    """'auto' on the card's machine: compress() of the 32-s walk,
+    to_array() of both 32-s files and the three ``WINDOWS`` of each,
+    uncached. Each decision is read first, then the call runs with the
+    counts set to 0: K6 (K1) launched if and only if the decision said
+    card, every byte the source's or the host route's."""
+    out, total = {}, dict.fromkeys(mt.launch_counts(), 0)
+
+    def tally():
+        for k, v in mt.launch_counts().items():
+            total[k] += v
+
+    rec = recs['int16_385ch']
+    w = mt.Writer(device='auto', **{k: v for k, v in rec.kwargs.items()
+                                    if k not in ('sample_rate', 'n_channels',
+                                                 'dtype')})
+    w.open(rec.raw, sample_rate=float(SR), n_channels=385, dtype='int16')
+    card = w._use_device()
+    w.close()
+    cbin = rec.workdir / 'auto.cbin'
+    ch = rec.workdir / 'auto.ch'
+    mt.reset_launch_counts()
+    mt.compress(rec.raw, cbin, ch, device='auto', **rec.kwargs)
+    torch.cuda.synchronize()
+    k6 = mt.launch_counts()['rans_encode']
+    tally()
+    require(cbin.read_bytes() == rec.cbin.read_bytes()
+            and ch.read_bytes() == rec.ch.read_bytes(),
+            '%s: compress(device=auto) differs from the host route' % label)
+    require((k6 > 0) == card, '%s: compress said %s and launched K6 %d '
+            'times' % (label, 'card' if card else 'host', k6))
+    cbin.unlink()
+    out['compress int16_385ch'] = card
+    for name in ('int16_385ch', 'spiky_int16_385ch'):
+        rec = recs[name]
+        r = rec.reader(device='auto', cache_size=WINDOW_CACHE)
+        try:
+            card = r._use_device()
+            mt.reset_launch_counts()
+            require(np.array_equal(r.to_array(), rec.arr),
+                    '%s: to_array() of %s differs' % (label, name))
+            k1 = kernel_launches()[1]
+            tally()
+            require((k1 > 0) == card, '%s: to_array() of %s said %s and '
+                    'launched K1 %d times' % (label, name,
+                                              'card' if card else 'host', k1))
+            out['to_array ' + name] = card
+            for wlabel, (a, n) in WINDOWS.items():
+                card = r._use_device(window=(a, a + n))
+                if r._dev_cache is not None:
+                    r._dev_cache.clear()
+                r.read_chunk.cache_clear()
+                mt.reset_launch_counts()
+                require(np.array_equal(r[a:a + n], rec.arr[a:a + n]),
+                        '%s: the %s window of %s differs'
+                        % (label, wlabel, name))
+                k1 = kernel_launches()[1]
+                tally()
+                require(k1 == (1 if card else 0), '%s: the %s window of %s '
+                        'said %s and launched K1 %d times'
+                        % (label, wlabel, name, 'card' if card else 'host',
+                           k1))
+                out['window %s %s' % (wlabel, name)] = card
+        finally:
+            r.close()
+    log('p. %s: %s' % (label, json.dumps({k: 'card' if v else 'host'
+                                          for k, v in out.items()})))
+    return out, total
+
+
+def auto_against_routes(auto, compress_s, routes_s, windows_ms):
+    """Phase p's decisions beside the route times phases k and i measured
+    in this run (a log line, not a check: timing agreement would be
+    flaky). Returns {call: {'auto': ..., 'gate_open': ..., 'card': time,
+    'host': time}}."""
+    out = {}
+    for call, card in auto['decisions'].items():
+        kind, _sep, rest = call.partition(' ')
+        if kind == 'compress':
+            times = (compress_s[rest]['device_s'], compress_s[rest]['host_s'])
+        elif kind == 'to_array':
+            times = tuple(float(np.median(routes_s[rest][k]))
+                          for k in ('device_s', 'host_s'))
+        else:
+            label, name = rest.split(' ')
+            times = tuple(windows_ms[name]['%s_%s' % (label, route)]
+                          ['uncached_ms'] / 1e3 for route in ('device',
+                                                              'host'))
+        out[call] = {'auto': 'card' if card else 'host',
+                     'gate_open': 'card' if auto['decisions_gate_open'][call]
+                     else 'host', 'card_s': times[0], 'host_s': times[1]}
+    log('p. auto decisions beside the routes measured in this run (s; '
+        'to_array a median of 2, windows uncached): %s'
+        % json.dumps(rounded(out)))
+    return out
+
+
+def check_auto(workdir, recs):
+    """Phase p: the link and host profiles measured afresh, the first-call
+    cost, and the 'auto' decisions with the port's constants and with the
+    size gate open (the profiles alone deciding), each read and write
+    byte-exact with K1/K6 launched where the decision said card."""
+    t0 = time.perf_counter()
+    link = pipeline.link_profile(refresh=True, device=DEVICE)
+    t1 = time.perf_counter()
+    host = pipeline.host_profile(refresh=True)
+    t2 = time.perf_counter()
+    cores = os.cpu_count()
+    first = first_call(workdir, recs['int16_385ch'])
+    pool_rate = host[1] * min(cores, mt.api.HOST_POOL_SCALING_CORES)
+    out = {'link_profile': {'latency_s': link[0], 'bytes_per_s': link[1],
+                            'probe_s': t1 - t0},
+           'host_profile': {'encode_bytes_per_s': host[0],
+                            'decode_bytes_per_s': host[1],
+                            'probe_s': t2 - t1},
+           'cpu_count': cores, 'first_call': first,
+           'host_pool_bytes_in_first_call': pool_rate * first['first_s'],
+           'AUTO_DEVICE_MIN_BYTES': mt.api.AUTO_DEVICE_MIN_BYTES}
+    log('p. link_profile: sync %.4f ms, fetch %.1f MB/s (probe %.3f s); '
+        'host_profile: encode %.1f MB/s, decode %.1f MB/s a core (probe '
+        '%.3f s); %d CPUs; a fresh process\'s first device decode (a 1-s '
+        'window, kernels built) %.3f s, again %.4f s: the host pool decodes '
+        '%.1f MB in that time (AUTO_DEVICE_MIN_BYTES %d)'
+        % (link[0] * 1e3, link[1] / 1e6, t1 - t0, host[0] / 1e6,
+           host[1] / 1e6, t2 - t1, cores, first['first_s'], first['again_s'],
+           out['host_pool_bytes_in_first_call'] / 1e6,
+           mt.api.AUTO_DEVICE_MIN_BYTES))
+    counts = {}
+    out['decisions'], counts['auto'] = auto_reads(recs, 'auto')
+    gate = mt.api.AUTO_DEVICE_MIN_BYTES
+    mt.api.AUTO_DEVICE_MIN_BYTES = 0
+    try:
+        out['decisions_gate_open'], counts['auto_gate_open'] = auto_reads(
+            recs, 'auto, size gate open')
+    finally:
+        mt.api.AUTO_DEVICE_MIN_BYTES = gate
+    return out, counts
+
+
 def check_bounded_batches(rec):
     """F3: ``to_array()`` of a 32-s file as one batch (the default bound
     keeps it whole) and with ``batch_chunks=8`` (four batches): the same
@@ -2452,6 +2777,9 @@ def main():
         % (native.library_path().name, native_s))
 
     workdir = Path(tempfile.mkdtemp(prefix='mtscomp_smoke_'))
+    # The measured profiles are cached in the work directory, never in
+    # the user's ~/.cache.
+    pipeline._profile_cache_path = lambda name: str(workdir / 'cache' / name)
     phase_s, clock = {'a-b build': time.perf_counter() - t_start}, [
         time.perf_counter()]
 
@@ -2488,9 +2816,14 @@ def main():
         multi = check_multi(workdir, recs)
         bounded = check_bounded_batches(recs['int16_385ch'])
         done('m, F3')
+        sharded, counts_by_path['sharded'] = check_sharded(workdir, recs)
+        done('s sharded')
         compress_s, encode_counts = drive_encode_paths(recs)
         counts_by_path.update(encode_counts)
         done('k encode paths')
+        auto, auto_counts = check_auto(workdir, recs)
+        counts_by_path.update(auto_counts)
+        done('p profiles and auto')
         check_tools(workdir, recs)
         done('t tools')
         stagings = time_staged(recs, staged)
@@ -2509,6 +2842,8 @@ def main():
         single_chunk = time_single_chunk(recs)
         windows_ms = time_windows(recs)
         routes_s = time_routes(recs)
+        auto['against_routes'] = auto_against_routes(
+            auto, compress_s, routes_s, windows_ms)
         done('i timings, windows and routes')
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2527,6 +2862,7 @@ def main():
                             'windows_ms': windows_ms,
                             'single_chunk': single_chunk,
                             'decompress_multi': multi,
+                            'auto': auto, 'sharded': sharded,
                             'bounded_batches': bounded, 'staged': stagings,
                             'layers_s': layers, 'compress_s': compress_s,
                             'staged_encode': staged_encode,

@@ -8,7 +8,10 @@ device routing replaced by the port's:
   :class:`~.parallel.pipeline.DeviceBatchEncoder` on the configured
   ``device`` (``'cuda'``, the default, runs the hand-written kernels;
   ``'cpu'`` their plain PyTorch twins), or on the host codec with
-  ``device='none'``. Both write the same bytes.
+  ``device='none'``. Both write the same bytes. ``device='auto'``
+  chooses by cost, for each compress, bulk decode and window: the
+  measured link and host codec against the constants below (the JAX
+  package's model, set from the card's numbers).
 - ``Reader`` decodes bulk reads of ans files (``to_array``, ``tofile``)
   through the port's batched decode on its ``device``, and
   ``to_tensor`` leaves the decoded samples there. Random-access
@@ -26,6 +29,7 @@ reference's (mtscomp.py:216-997) as the JAX package implements it.
 
 import bisect
 import hashlib
+import multiprocessing
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
@@ -46,6 +50,68 @@ from .parallel.pipeline import (DeviceBatchEncoder, DeviceChunkCache,
                                 MIN_DEVICE_SUBBATCH, decompress_to_array,
                                 decompress_to_tensor)
 from .utils.misc import Bunch, clip, logger, progress
+
+
+# --- The 'auto' route's cost model -----------------------------------------
+# 'auto' with a GPU weighs the card against the host codec for each
+# compress(), bulk decode and window (Writer._use_device,
+# Reader._use_device). Both sides are MEASURED where that is cheap
+# (pipeline.link_profile: sync latency and fetch bandwidth of the card;
+# pipeline.host_profile: one core's codec rates through the live entry
+# points; both disk-cached 24 h per machine). The constants below cannot
+# be probed without building and running the kernels, so they are pinned
+# from the card's own runs (chip_smoke.py phases i, k and p on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, PERF.md section 5), each with the direction
+# in which a wrong value errs. The names are the JAX package's
+# (mtscomp_tpu/api.py:37-77); none of its TPU values enters here.
+#
+# AUTO_DEVICE_MIN_BYTES: below this recording size 'auto' never uses the
+# card, decided before any CUDA call or probe. A fresh process's first
+# device decode (one 1-s window of 23.1 MB, kernels already built: CUDA
+# context, the kernel library's load, the first allocations) took
+# 0.465 s against 0.047 s for the next one (phase p); in that time the
+# host pool, 8 cores at the measured 553 MB/s a core, decodes 2.06 GB:
+# pinned at 2 GiB. Too low: a short job pays the first call for nothing;
+# too high: a recording just under it reads every window on the host,
+# 2-5x slower a window once the card is up.
+AUTO_DEVICE_MIN_BYTES = 2 << 30
+# DEV_DECODE_KERNEL_RATE: the card's work of one chunk in a window read,
+# as a rate: parse + pack + upload + K1 + finalize of one uncached 23.1
+# MB chunk took 12-27 ms (K1 about 1 ms of it), 0.86-1.9 GB/s; pinned at
+# the slow end. Too low inflates the card's cost: windows stay on the
+# host a little longer than they should.
+DEV_DECODE_KERNEL_RATE = 0.85e9
+# DEV_ENCODE_RATE_CAP: cap on the card route's encode rate. compress()
+# on the card's route took 1.61-2.12 s for the 739.2 MB walk (0.35-0.46
+# GB/s) and 2.34 s for the walk with spikes (0.32 GB/s): host decisions,
+# assembly, read and upload; K6 is 1.1 ms of it. Pinned at 0.3 GB/s.
+# Raise it when the host side of the device encode gets faster (ROADMAP
+# Queue 1 item 3). Too low sends compress() to the host pool, which is
+# as fast today (1.37-2.37 s for the walk).
+DEV_ENCODE_RATE_CAP = 0.3e9
+# HOST_POOL_SCALING_CORES: cores credited to the host codec pool; the
+# card's host has 8, and scaling past them is not measured (the JAX
+# package measured ~linear scaling to 8 and clamps there too). Too low
+# undercredits a wide host: bulk decodes and compress() pick the card
+# where the pool might tie.
+HOST_POOL_SCALING_CORES = 8
+
+
+def _encodes_on_device(n_bytes, code_itemsize, device):
+    """The 'auto' encode decision past its first two gates (an ans file,
+    'auto' with a GPU): 8-byte dtypes and recordings under
+    AUTO_DEVICE_MIN_BYTES to the host before any probe, then the card
+    where its upload-bound encode outruns the host pool. compress()
+    reads from host memory, so the link bounds the card's route too."""
+    if code_itemsize > 4:
+        return False
+    if n_bytes < AUTO_DEVICE_MIN_BYTES:
+        return False
+    _lat, bw = pipeline.link_profile(device=device)
+    enc_rate, _ = pipeline.host_profile()
+    host_rate = enc_rate * min(multiprocessing.cpu_count(),
+                               HOST_POOL_SCALING_CORES)
+    return min(bw, DEV_ENCODE_RATE_CAP) > host_rate
 
 
 # Host slice reads spanning at least this many chunks — and more than
@@ -109,8 +175,8 @@ class Writer:
     Configuration keys (merged through ``read_config``): chunk_duration,
     algorithm ('zlib' legacy / 'ans' v2), comp_level (recorded only),
     do_time_diff, do_spatial_diff, chunk_order, n_threads,
-    check_after_compress, device ('cuda', 'cpu' or 'none': where ans
-    batches encode).
+    check_after_compress, device ('cuda', 'cuda:N', 'cpu', 'none' or
+    'auto': where ans batches encode, :meth:`_use_device`).
 
     ``before_check`` is a hook invoked between writing and the automatic
     integrity check (used by fault-injection tests; reference
@@ -386,9 +452,26 @@ class Writer:
 
     def _use_device(self):
         """Whether batches encode through the port's
-        :class:`DeviceBatchEncoder`: every ans batch, unless
-        ``device='none'`` asks for the host codec (the same bytes)."""
-        return self.device is not None
+        :class:`DeviceBatchEncoder` (the same bytes as the host codec).
+
+        ``device='cuda'``, ``'cuda:N'`` and ``'cpu'`` always do,
+        ``'none'`` never does, nor ``'auto'`` without a GPU. ``'auto'``
+        with a GPU weighs the measured link
+        (:func:`~.parallel.pipeline.link_profile`) against the host
+        codec's measured encode rate
+        (:func:`~.parallel.pipeline.host_profile`) over the host pool's
+        cores: compress() reads from host memory, so the card's route is
+        bound by its upload and, today, by its host side
+        (``DEV_ENCODE_RATE_CAP``). 8-byte dtypes and recordings under
+        ``AUTO_DEVICE_MIN_BYTES`` go to the host before any probe.
+        """
+        if self.algorithm != 'ans' or self.device is None:
+            return False
+        if self.config.device != 'auto':
+            return True
+        return _encodes_on_device(
+            self.n_samples * self.n_channels * self.dtype.itemsize,
+            self.code_dtype.itemsize, self.device)
 
     def _host_chunks(self, ids):
         """Host-codec encodes of chunks ``ids`` that the device route
@@ -682,9 +765,10 @@ class Reader:
     Bulk decodes of ans files (``to_array``, ``tofile``) run the port's
     batched decode on ``device`` (the ``device`` key: ``'cuda'``, or
     ``'cpu'`` for the plain twins; ``'none'`` keeps them on the host
-    codec), and ``to_tensor`` returns decoded samples on the device.
-    Slice and row reads of ans files go the same way, chunk by chunk,
-    through a device-resident LRU of decoded chunks; ``close`` drops it.
+    codec; ``'auto'`` decides by cost, :meth:`_use_device`), and
+    ``to_tensor`` returns decoded samples on the device. Slice and row
+    reads of ans files go the same way, chunk by chunk, through a
+    device-resident LRU of decoded chunks; ``close`` drops it.
     """
 
     def __init__(self, **kwargs):
@@ -1015,15 +1099,47 @@ class Reader:
         """Whether decodes go through the port's device pipeline.
 
         ``window=None`` asks about bulk decodes, ``window=(i0, i1)``
-        about one random-access read. Both follow the device the file
-        was opened with: an ans file on a resolved device (``'cuda'``,
-        ``'cuda:N'``, ``'cpu'``, or ``'auto'`` that found a GPU) decodes
-        there; zlib files and ``device='none'`` stay on the host codec.
-        ``window`` is the JAX package's signature and is not read yet:
-        its ``'auto'`` weighs a measured link against the host codec for
-        each window, and the port has no such cost model.
+        about one random-access read. zlib files, ``device='none'`` and
+        ``'auto'`` without a GPU stay on the host codec; ``'cuda'``,
+        ``'cuda:N'`` and ``'cpu'`` always decode on their device.
+        ``'auto'`` with a GPU routes by cost: every decoded byte a
+        caller sees crosses the card's link
+        (:func:`~.parallel.pipeline.link_profile`), so a bulk decode
+        takes the card when the link's fetch rate beats the host pool
+        (:func:`~.parallel.pipeline.host_profile` over its cores), and
+        a window when one sync, the window's fetch and the card's work
+        on its chunks (``DEV_DECODE_KERNEL_RATE``) cost less than one
+        core decoding those chunks. 8-byte dtypes (which the device
+        decode declines) and recordings under ``AUTO_DEVICE_MIN_BYTES``
+        go to the host before any CUDA call or probe. The choice is made
+        here, before anything is staged: an error of the device decode
+        propagates.
         """
-        return self.algorithm == 'ans' and self.device is not None
+        if self.algorithm != 'ans' or self.device is None:
+            return False
+        if self.config.device != 'auto':
+            return True
+        if self.code_dtype.itemsize > 4:
+            return False
+        itemsize = self.dtype.itemsize
+        if (self.n_samples * self.n_channels * itemsize
+                < AUTO_DEVICE_MIN_BYTES):
+            return False
+        lat, bw = pipeline.link_profile(device=self.device)
+        _, host_rate = pipeline.host_profile()
+        if window is None:
+            return bw > host_rate * min(multiprocessing.cpu_count(),
+                                        HOST_POOL_SCALING_CORES)
+        i0, i1 = window
+        first, last = self._chunks_for_interval(i0, max(i0, i1 - 1))
+        chunk_bytes = ((self.chunk_bounds[last + 1]
+                        - self.chunk_bounds[first])
+                       * self.n_channels * itemsize)
+        window_bytes = (i1 - i0) * self.n_channels * itemsize
+        host_cost = chunk_bytes / host_rate
+        dev_cost = (lat + window_bytes / bw
+                    + chunk_bytes / DEV_DECODE_KERNEL_RATE)
+        return dev_cost < host_cost
 
     def _device_window(self, i0, i1):
         """Random-access window via the device chunk cache; None for the

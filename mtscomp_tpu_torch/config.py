@@ -5,9 +5,10 @@ Parity: reproduces the reference's config system (mtscomp.py:46-57,
 flags that were not passed fall through to file defaults — and extends it
 with the ans format's keys and the port's device (``'cuda'`` runs the
 hand-written kernels, ``'cpu'`` their plain PyTorch twins, ``'none'``
-the host codec; ``'auto'``, the value a config file written for the JAX
-package may hold, means ``'cuda'`` where a GPU is visible, else
-``'none'``).
+the host codec; ``'auto'``, the JAX package's default, is the host codec
+where no GPU is visible and, where one is, a choice by cost for each
+compress, bulk decode and window: ``Writer._use_device``,
+``Reader._use_device``).
 
 The user file is ``~/.mtscomp`` so that defaults configured for the
 reference library apply here unchanged (drop-in behavior).
@@ -47,9 +48,11 @@ DEFAULT_CONFIG = (
     # --- ans (v2) and device extensions ---
     ('device', 'cuda'),             # 'cuda' (kernels; raises without a GPU)
                                     # | 'cpu' (their twins) | 'none' (host
-                                    # codec only) | 'auto' ('cuda' if a GPU
-                                    # is visible, else 'none'); 'cuda:N'
-                                    # picks a card. Only ans files use it.
+                                    # codec only) | 'auto' (no GPU: 'none';
+                                    # else the card or the host codec by
+                                    # measured cost, each compress, bulk
+                                    # decode and window); 'cuda:N' picks a
+                                    # card. Only ans files use it.
     ('ans_seg_log2', 16),           # log2 symbols per rANS segment (128 lanes each)
     ('ans_channel_segments', True),  # channel-aligned segments (TPU fast layout)
     ('ans_table_mode', 'segment'),  # 'segment' (default: clustered per-segment

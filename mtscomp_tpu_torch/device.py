@@ -5,10 +5,14 @@ silent fallback.
 raises when no GPU is visible; ``'cpu'`` runs each kernel's plain PyTorch
 twin (what the CPU test suite uses). The ``device`` key of the
 configuration also takes ``'none'`` (the host codec, no device) and
-``'auto'``: ``'cuda'`` where a GPU is visible, else ``'none'``, decided
-when the file is opened (:func:`configured_device`). Any other name is
-refused before torch sees it. Nothing here is process-global: every
-entry point takes the device it should run on.
+``'auto'``: the host codec where no GPU is visible, decided when the
+file is opened (:func:`configured_device`); where one is, the
+``Writer`` and ``Reader`` route each compress, bulk decode and window by
+cost, the measured link and host codec against constants set from the
+card (``api.py``, ``parallel/pipeline.py`` ``link_profile`` and
+``host_profile``). Any other name is refused before torch sees it.
+Nothing here is process-global: every entry point takes the device it
+should run on.
 """
 
 import re
@@ -62,9 +66,10 @@ def resolve_device(device):
 def configured_device(device):
     """The configuration's ``device`` value as a ``torch.device``, or None
     for the host codec: ``'none'``, or ``'auto'`` on a host without a
-    GPU (``'auto'`` is ``'cuda'`` where one is visible). Every other
-    value goes through :func:`resolve_device`: ``'cuda'`` still raises
-    without a GPU."""
+    GPU. ``'auto'`` where one is visible gives ``'cuda'``, the device its
+    cost model may choose (``Writer._use_device``,
+    ``Reader._use_device``). Every other value goes through
+    :func:`resolve_device`: ``'cuda'`` still raises without a GPU."""
     if device == 'none':
         return None
     if device == 'auto':

@@ -56,6 +56,9 @@ declines) are counted (``host_encoded_chunks``).
 import collections
 import dataclasses
 import functools
+import json
+import math
+import os
 import struct
 import time
 
@@ -71,6 +74,7 @@ from ..format import decode_identity
 from ..io_host import pread_exact
 from ..models import rans
 from ..models.rans import GROUP_ROWS, LANES, RANS_L
+from ..ops.delta import cumsum_along_axis
 from ..ops.device_delta import (cumsum_space, cumsum_time,
                                 cumsum_time_transposed,
                                 cumsum_time_transposed_planes,
@@ -85,6 +89,7 @@ from ..ops.rans_encode import (encode_groups, left_align,
 from ..ops.tables import WINDOW_ROWS, pack_device_tables
 from ..utils.misc import logger
 from ..utils.trace import phase
+from .mesh import mesh_devices, on_device
 
 #: Chunks decoded on the host codec because ``supported()`` declined
 #: their batch (the codec's documented semantics, as in the JAX package).
@@ -98,6 +103,172 @@ host_encoded_chunks = 0
 #: Tensor dtype holding a coding dtype's bits, by item size.
 _BITS = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.int16),
          4: (torch.int32, np.int32)}
+
+
+# --- measured profiles of the 'auto' route ---------------------------------
+
+#: CUDA device index -> measured ``(sync_latency_s, device->host
+#: bytes_per_s)``, filled by :func:`link_profile`.
+_LINK_PROFILE = {}
+
+
+def link_profile(refresh=False, device='cuda'):
+    """Measured ``(sync_latency_s, device->host_bytes_per_s)`` of the
+    link to ``device``; cached per CUDA device index after the first
+    call, in this process and on disk (24 h).
+
+    ``'auto'`` routing (``Writer._use_device`` / ``Reader._use_device``)
+    must know what a sync and a fetch cost, because every decoded byte a
+    caller sees crosses this link. Measured, not configured: the best of
+    3 round trips of a tiny device reduction fetched with ``.item()``
+    bounds the latency, and 256 KB of fresh host-random words, uploaded
+    and xor'd on the card at each rep so that no fetch reads a buffer it
+    already copied, fetched with ``.cpu()`` into pageable memory (as
+    ``to_array()`` fetches), bound the bandwidth. A CPU device reports
+    (0, inf): its tensors are host memory already.
+    """
+    dev = torch.device(device)
+    # The device type BEFORE the caches: a CPU device never reads a
+    # profile measured for a card.
+    if dev.type == 'cpu':
+        return (0.0, float('inf'))
+    index = dev.index
+    if index is None:
+        # 'cuda' is the current device: 0 until CUDA is initialized.
+        index = torch.cuda.current_device() \
+            if torch.cuda.is_initialized() else 0
+    if not refresh:
+        if index in _LINK_PROFILE:
+            return _LINK_PROFILE[index]
+        cached = _load_profile_cache('link_profile_cuda%d.json' % index,
+                                     _LINK_KEYS)
+        if cached is not None:
+            _LINK_PROFILE[index] = cached
+            return cached
+    dev = torch.device('cuda', index)
+    small = torch.zeros((8, LANES), dtype=torch.float32, device=dev)
+    small.sum().item()                      # first launch and fetch
+    lat = min(_timed(lambda: small.sum().item()) for _ in range(3))
+    payload = np.random.default_rng(0).integers(
+        0, 1 << 32, size=(1 << 16,), dtype=np.uint32).view(np.int32)
+    fetches = []
+    for i in range(3):
+        fresh = torch.from_numpy(payload).to(dev) ^ (i + 1)
+        fetches.append(_timed(lambda d=fresh: d.cpu()))
+    bw = payload.nbytes / max(min(fetches) - lat, 1e-7)
+    _LINK_PROFILE[index] = (lat, bw)
+    logger.debug("Link profile of cuda:%d: sync %.3f ms, fetch %.0f MB/s.",
+                 index, lat * 1e3, bw / 1e6)
+    _store_profile_cache('link_profile_cuda%d.json' % index, _LINK_KEYS,
+                         (lat, bw))
+    return (lat, bw)
+
+
+_PROFILE_CACHE_TTL = 24 * 3600.0
+_LINK_KEYS = ('latency_s', 'bytes_per_s')
+
+
+def _profile_cache_path(name):
+    """The port's own cache: the JAX package's ``~/.cache/mtscomp_tpu``
+    holds the profile of the link it saw, which says nothing of a card."""
+    return os.path.join(os.path.expanduser('~/.cache/mtscomp_tpu_torch'),
+                        name)
+
+
+def _load_profile_cache(name, keys):
+    """Probing costs time (a CUDA context for the link, ~100 ms of codec
+    work for the host): one measured profile serves every process on the
+    machine for a day. A stale entry only costs speed, never
+    correctness (every route is byte-exact)."""
+    try:
+        path = _profile_cache_path(name)
+        if time.time() - os.stat(path).st_mtime > _PROFILE_CACHE_TTL:
+            return None
+        with open(path) as f:
+            d = json.load(f)
+        return tuple(float(d[k]) for k in keys)
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
+
+
+def _store_profile_cache(name, keys, values):
+    try:
+        path = _profile_cache_path(name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = '%s.%d.tmp' % (path, os.getpid())
+        with open(tmp, 'w') as f:
+            json.dump(dict(zip(keys, values)), f)
+        os.replace(tmp, path)
+    except OSError:  # pragma: no cover - the cache is best-effort
+        pass
+
+
+_HOST_PROFILE = None
+_HOST_KEYS = ('encode_bytes_per_s', 'decode_bytes_per_s')
+#: Used if the measurement itself fails (never expected): ~300 MB/s
+#: encode and ~250 MB/s decode per core, the JAX package's estimates.
+_HOST_FALLBACK = (300e6, 250e6)
+
+
+def host_profile(refresh=False):
+    """Measured ``(encode_bytes_per_s, decode_bytes_per_s)`` of ONE host
+    core running the ans codec on a synthetic Neuropixels-like block;
+    cached in this process and on disk (24 h, beside the link profiles).
+
+    ``'auto'`` routing weighs the link against the host codec; timing
+    the codec's own entry points on a 4 MB block (~100 ms with the C++
+    runtime) makes the decision derive from two measurements, and sees
+    whether the native runtime is loaded.
+    """
+    global _HOST_PROFILE
+    if _HOST_PROFILE is not None and not refresh:
+        return _HOST_PROFILE
+    if not refresh:
+        cached = _load_profile_cache('host_profile.json', _HOST_KEYS)
+        if cached is not None:
+            _HOST_PROFILE = cached
+            return _HOST_PROFILE
+    _HOST_PROFILE = _measure_host_rates()
+    logger.debug("Host codec profile: encode %.0f MB/s, decode %.0f MB/s "
+                 "per core.", _HOST_PROFILE[0] / 1e6, _HOST_PROFILE[1] / 1e6)
+    _store_profile_cache('host_profile.json', _HOST_KEYS, _HOST_PROFILE)
+    return _HOST_PROFILE
+
+
+def _measure_host_rates():
+    """Single-thread codec rates on a 4 MB chunk (16384 x 128 int16),
+    best of 3: encode with the fused time-diff prep (what
+    ``Writer._compress_chunk`` runs) and decode + in-place inverse cumsum
+    (what ``Reader.read_chunk`` runs). The routes it separates differ by
+    far more than scheduler jitter."""
+    try:
+        ns, nc = 16384, 128
+        rng = np.random.default_rng(0)
+        arr = np.ascontiguousarray(np.cumsum(
+            rng.normal(0.0, 6.0, size=(ns, nc)), axis=0).astype(np.int16))
+        codec = ans_mod.AnsCodec()
+        enc_t = dec_t = float('inf')
+        payload = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            payload = codec.encode(arr, order='F', time_diff_pending=True)
+            enc_t = min(enc_t, time.perf_counter() - t0)
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = codec.decode(payload, ns, nc, arr.dtype, order='F')
+            cumsum_along_axis(out, axis=0, inplace=True)
+            dec_t = min(dec_t, time.perf_counter() - t0)
+        return (arr.nbytes / max(enc_t, 1e-7), arr.nbytes / max(dec_t, 1e-7))
+    except Exception:  # pragma: no cover - fallback only
+        logger.debug("Host codec rate probe failed; using fallback "
+                     "estimates.", exc_info=True)
+        return _HOST_FALLBACK
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
 
 def _fuse8_geom(modes, dtype, zigzag, order, do_time_diff, do_spatial_diff,
@@ -506,12 +677,40 @@ class DeviceBatchDecoder:
             check_words_used(parsed_list, used)
         return out
 
-    def decode_batch(self, parsed_list, n_samples):
-        """(B, n_samples, n_channels) decoded ndarray in the coding dtype."""
-        return self.decode_tensor(parsed_list, n_samples).cpu().numpy().view(
-            self.dtype)
+    def decode_batch(self, parsed_list, n_samples, mesh=None):
+        """(B, n_samples, n_channels) decoded ndarray in the coding dtype.
 
-    def pack(self, parsed_list, n_samples):
+        With ``mesh`` (:func:`~.mesh.chunk_mesh`), the chunk batch is
+        sharded across the mesh's devices (:meth:`pack`): each shard's
+        decode is launched on its own device, so that distinct cards
+        overlap, then every shard's word counts are audited and its
+        samples fetched into their rows of the result. Raises ValueError
+        when the mesh does not divide a batch with rANS groups.
+        """
+        if mesh_devices(mesh) is None:
+            return self.decode_tensor(parsed_list, n_samples).cpu().numpy(
+                ).view(self.dtype)
+        with phase('decode.pack'):
+            fn, shards = self.pack(parsed_list, n_samples, mesh=mesh)
+        with phase('decode.device'):
+            results = []
+            for args in shards:
+                with on_device(args[0].device):
+                    results.append(fn(*args))
+        with phase('decode.fetch'):
+            check_words_used(parsed_list,
+                             torch.cat([used.cpu() for _, used in results]))
+            out = np.empty((len(parsed_list), n_samples,
+                            self.reader.n_channels), self.dtype)
+            bits = out.view(_BITS[self.dtype.itemsize][1])
+            pos = 0
+            for samples, _used in results:
+                torch.from_numpy(bits[pos:pos + samples.shape[0]]).copy_(
+                    samples)
+                pos += samples.shape[0]
+        return out
+
+    def pack(self, parsed_list, n_samples, mesh=None):
         """Stage a batch: ``(fn, tensors)`` with ``fn(*tensors)`` returning
         ``(samples, words_used)`` on the device; pass ``words_used`` to
         :func:`check_words_used` for the corruption audit
@@ -521,7 +720,18 @@ class DeviceBatchDecoder:
         The staged arrays are the JAX package's (its ``freqs`` and
         ``counts_b`` aside, which the port's K1 does not read), octet rows
         or coarse tables as its Pallas kernel would take them.
+
+        With ``mesh`` (:func:`~.mesh.chunk_mesh` of width n), returns
+        ``(fn, shards)``: ``shards[s]`` holds the tensors of chunks
+        ``[s*B/n, (s+1)*B/n)`` on ``mesh[s]`` and ``fn(*shards[s])``
+        decodes them there. The staged arrays are the JAX package's
+        ``pack(mesh=)`` arrays cut along their leading axis: groups
+        chunk-major in each shard, with the ragged tail ``[full groups |
+        tail groups]`` in each shard, so that every shard's slab stands
+        alone. ``B % n != 0`` raises ValueError; a batch with no rANS
+        groups is not sharded: one shard on the decoder's device.
         """
+        devices = mesh_devices(mesh)
         B = len(parsed_list)
         C = self.reader.n_channels
         T = n_samples
@@ -591,12 +801,26 @@ class DeviceBatchDecoder:
         wr = -(-w_max // LANES) + WINDOW_ROWS
         WR = -(-wr // 512) * 512
 
+        # Shards: the mesh's width where the batch has rANS groups. The
+        # group layout below is per shard, so each shard's slab holds
+        # whole chunks and the decode fn sees exactly this layout at the
+        # shard's batch size.
+        n_shard = 1
+        if devices is not None and G > 0:
+            n_shard = len(devices)
+            if B % n_shard:
+                raise ValueError("chunk batch must divide the mesh (%d "
+                                 "chunks, %d devices)" % (B, n_shard))
+        Bl = B // n_shard
+
         def group_slot(b, gi):
             if tail is None:
                 return b * G + gi
+            s, bl = divmod(b, Bl)
+            base = s * Bl * G
             if gi == G - 1:
-                return B * (G - 1) + b
-            return b * (G - 1) + gi
+                return base + Bl * (G - 1) + bl
+            return base + bl * (G - 1) + gi
 
         NG = max(B * G, 1)
         states = np.full((NG, GROUP_ROWS, LANES), RANS_L, dtype=np.uint32)
@@ -652,19 +876,27 @@ class DeviceBatchDecoder:
             NG, GROUP_ROWS, 256)
         self.last_tail = tail
         if fuse8:
-            fn = functools.partial(_decode_fuse8, B=B, T=T, G=G, S=S, k=k,
+            fn = functools.partial(_decode_fuse8, B=Bl, T=T, G=G, S=S, k=k,
                                    tp=tp, tail=tail, fixups=fixups,
                                    diff_order=diff_order)
         else:
             fn = functools.partial(_decode_generic, lay=Layout(
-                B=B, T=T, C=C, itemsize=self.dtype.itemsize, modes=modes,
+                B=Bl, T=T, C=C, itemsize=self.dtype.itemsize, modes=modes,
                 n_seg=n_seg, seg=seg, G=G, S=S, order=self.order,
                 do_time_diff=do_time_diff, diff_order=diff_order,
                 do_spatial_diff=do_spatial_diff, zigzag=first['zigzag'],
                 has_head=has_head, aligned=aligned, tail_split=tail_split,
                 fixups=fixups))
-        return fn, _to_tensors(states, words, lookup, dense_pk, counts,
-                               const_vals, raw_vals, heads, self.device)
+        by_group = (states, words, lookup, dense_pk, counts)
+        by_chunk = (const_vals, raw_vals, heads)
+        if devices is None:
+            return fn, _to_tensors(*by_group, *by_chunk, self.device)
+        if G == 0:
+            return fn, [_to_tensors(*by_group, *by_chunk, self.device)]
+        return fn, [_to_tensors(
+            *(a[s * Bl * G:(s + 1) * Bl * G] for a in by_group),
+            *(a[s * Bl:(s + 1) * Bl] for a in by_chunk), dev)
+            for s, dev in enumerate(devices)]
 
 
 def _read_payload(reader, idx):
@@ -699,15 +931,19 @@ def batch_limit(reader, n_samples):
         or max(1, DECODE_BATCH_BYTES // chunk_bytes)
 
 
-def _uniform_batches(readers, chunk_ids, n_samples, dec):
+def _uniform_batches(readers, chunk_ids, n_samples, dec, multiple=1):
     """Cut a run into batches of consecutive chunks that ``supported()``
     accepts together, each of at most :func:`batch_limit` chunks over
     all ``readers`` (several for a multi-probe decode: every batch then
     holds the same chunks of each). Yields ``(chunk ids, parsed chunks)``
     as each batch closes, so only one batch's payloads are held at a
     time; the parsed chunks are reader-major, each reader's in id order.
+    A batch cut by the bound holds a multiple of ``multiple`` ids (at
+    least ``multiple``, beyond the bound if need be): what a mesh needs
+    to divide it.
     """
     limit = max(1, batch_limit(readers[0], n_samples) // len(readers))
+    limit = max(multiple, limit - limit % multiple)
     ids, cols = [], []
 
     def batch():
@@ -936,22 +1172,25 @@ def decompress_multi(readers, mesh=None, first_chunk=0, last_chunk=None):
     """Decode the same chunk range of several recordings (multi-probe).
 
     The probes' chunk batches are concatenated and decoded in one device
-    call on the first reader's device. All probes must share geometry
-    (channels, chunk sizes, dtype, plane modes). Returns a list of
-    ``(n_samples, n_channels)`` arrays, one per reader. A range whose
+    call on the first reader's device, or sharded across ``mesh``
+    (:func:`~.mesh.chunk_mesh`: N probes chunk-parallel across cards,
+    :meth:`DeviceBatchDecoder.decode_batch`). All probes must share
+    geometry (channels, chunk sizes, dtype, plane modes). Returns a list
+    of ``(n_samples, n_channels)`` arrays, one per reader. A range whose
     merged batch would exceed :func:`batch_limit` is cut by chunk index:
-    each call decodes the same few chunks of every probe.
+    each call decodes the same few chunks of every probe, and with a
+    mesh a count of chunks that keeps the batch a multiple of its width
+    whenever the whole range is one. A range that is not raises the
+    decode's ValueError, as the JAX package's assertion does; a batch cut
+    where the plane modes change is not sharded when the mesh does not
+    divide it.
 
     Falls back to per-reader ``to_array`` (:func:`decompress_to_array`
-    on each reader's own device) when the batches cannot be merged. ``mesh`` (the JAX package's sharding of
-    the merged batch across chips) is not ported: ROADMAP Queue 1 item
-    6; any value but None raises NotImplementedError.
+    on each reader's own device, no mesh) when the batches cannot be
+    merged. ``mesh`` must be a mesh or None (TypeError).
     """
     assert readers
-    if mesh is not None:
-        raise NotImplementedError(
-            "decompress_multi(mesh=...) is not ported yet (ROADMAP Queue 1 "
-            "item 6: mesh= / parallel/mesh.py); pass mesh=None.")
+    devices = mesh_devices(mesh)
     last = readers[0].n_chunks - 1 if last_chunk is None else last_chunk
     n_chunks = last - first_chunk + 1
     if not 0 <= first_chunk <= last:
@@ -985,13 +1224,17 @@ def decompress_multi(readers, mesh=None, first_chunk=0, last_chunk=None):
         ns = sizes.pop()
     if mergeable:
         dec = DeviceBatchDecoder(r0, r0.device)
+        width = len(devices) if devices else 1
+        whole = (len(readers) * n_chunks) % width == 0
         outs = None
         for ids, parsed in _uniform_batches(
-                readers, range(first_chunk, last + 1), ns, dec):
+                readers, range(first_chunk, last + 1), ns, dec,
+                multiple=width // math.gcd(width, len(readers))):
             if not dec.supported(parsed, ns):
                 break
-            block = _as_user_dtype(dec.decode_batch(parsed, ns), r0).reshape(
-                len(readers), len(ids) * ns, -1)
+            shard = mesh if len(parsed) % width == 0 or not whole else None
+            block = _as_user_dtype(dec.decode_batch(parsed, ns, mesh=shard),
+                                   r0).reshape(len(readers), len(ids) * ns, -1)
             del parsed
             if len(ids) == n_chunks:
                 return list(block)
@@ -1115,8 +1358,9 @@ class DeviceBatchEncoder:
             self.do_time_diff = self.do_time_diff and t_order > 0
             self.stamp = (t_order if writer.do_time_diff else 0,
                           bool(t_spatial))
-        #: K6's staged inputs of the last batch with a rANS plane:
-        #: ``(symbols, pk, rcp, counts, cap)`` on the device.
+        #: K6's staged inputs of the last batch with a rANS plane (its
+        #: last shard's with a mesh): ``(symbols, pk, rcp, counts, cap)``
+        #: on the device.
         self.last_kernel_args = None
         #: Host-clock seconds by layer, accumulated over encode_batch
         #: calls when set to a dict (each layer ends in a synchronize).
@@ -1148,13 +1392,23 @@ class DeviceBatchEncoder:
                                          self.do_spatial_diff),
             order=self.order, transform=self.stamp)
 
-    def encode_batch(self, chunks):
+    def encode_batch(self, chunks, mesh=None):
         """chunks: (B, T, C) ndarray in the coding dtype, or a tensor on
         the device holding its bits (``_BITS``) -> list of container
         payload bytes, or None for a layout the device route leaves to
         the host codec (segment tables without channel-aligned
-        segments, as in the JAX package)."""
+        segments, as in the JAX package).
+
+        With ``mesh`` (:func:`~.mesh.chunk_mesh`), K6's group axis is
+        sharded across the mesh's devices: the groups are padded to a
+        multiple of its width with inactive filler groups (count 0,
+        placeholder tables), each shard is encoded on its device and its
+        streams left-aligned and fetched, and the filler is dropped. The
+        transform and the plane decisions run on the encoder's device as
+        without a mesh; the bytes are the same.
+        """
         global host_encoded_chunks
+        devices = mesh_devices(mesh)
         t0 = time.perf_counter()
         B, T, C = chunks.shape
         P = self.dtype.itemsize
@@ -1246,7 +1500,7 @@ class DeviceBatchEncoder:
                 sub = self.encode_batch(
                     chunks[torch.tensor(ids, device=chunks.device)]
                     if torch.is_tensor(chunks)
-                    else np.ascontiguousarray(chunks[ids]))
+                    else np.ascontiguousarray(chunks[ids]), mesh=mesh)
                 for j, b in enumerate(ids):
                     payloads[b] = sub[j]
             return payloads
@@ -1265,10 +1519,13 @@ class DeviceBatchEncoder:
             G = -(-len(segments) // GROUP_ROWS)
             R = GROUP_ROWS
             S = -(-min(seg, n_stream) // LANES)
-            freq_arr = np.zeros((B * G, R, 256), dtype=np.int64)
-            counts_arr = np.zeros((B * G, R), dtype=np.int32)
-            # Rows past a group's segments are inactive (count 0); any
-            # >= 2-symbol table keeps their lookups in range.
+            N = B * G
+            width = len(devices) if devices else 1
+            NP = -(-N // width) * width        # filler groups to the width
+            freq_arr = np.zeros((NP, R, 256), dtype=np.int64)
+            counts_arr = np.zeros((NP, R), dtype=np.int32)
+            # Rows past a group's segments and filler groups are inactive
+            # (count 0); any >= 2-symbol table keeps their lookups in range.
             freq_arr[:, :, :2] = rans.SCALE // 2
             for b in range(B):
                 for gi in range(G):
@@ -1283,26 +1540,42 @@ class DeviceBatchEncoder:
             uniq, inv = np.unique(freq_arr.reshape(-1, 256), axis=0,
                                   return_inverse=True)
             pk_u, rcp_u = pack_encoder_tables(uniq)
-            pk_arr = pk_u[inv.reshape(-1)].reshape(B * G, R, 256)
-            rcp_arr = rcp_u[inv.reshape(-1)].reshape(B * G, R, 256)
+            pk_arr = pk_u[inv.reshape(-1)].reshape(NP, R, 256)
+            rcp_arr = rcp_u[inv.reshape(-1)].reshape(NP, R, 256)
             cap = symbol_capacity(counts_arr)
             t0 = self._mark('host_decisions', t0)
             symbols = _gather_symbols(
                 planes_d, rans_planes, segments, B=B, G=G, C=C, tcs=tcs,
                 tp=tp, aligned=aligned, n_stream=n_stream, seg=seg, S=S,
                 tsplit=tsplit)
-            dev = self.device
-            args = (symbols, torch.from_numpy(pk_arr).to(dev),
-                    torch.from_numpy(rcp_arr).to(dev),
-                    torch.from_numpy(counts_arr).to(dev), cap)
-            self.last_kernel_args = args
+            if NP > N:
+                symbols = torch.cat([symbols, symbols.new_zeros(
+                    (NP - N, R, S * LANES))])
+            # One shard on the encoder's device without a mesh.
+            shards = devices or (self.device,)
+            per = NP // len(shards)
+            staged = [(dev, tuple(
+                a[s * per:(s + 1) * per].to(dev) for a in (
+                    symbols, torch.from_numpy(pk_arr),
+                    torch.from_numpy(rcp_arr), torch.from_numpy(counts_arr)))
+                + (cap,)) for s, dev in enumerate(shards)]
+            self.last_kernel_args = staged[-1][1]
             t0 = self._mark('gather_stage', t0)
+            outs = []
             with phase('encode.kernel'):
-                states_d, words_d, nw_d = encode_groups(*args)
+                for dev, args in staged:
+                    with on_device(dev):
+                        outs.append(encode_groups(*args))
             t0 = self._mark('k6', t0)
             with phase('encode.align'):
-                flat, n_words = left_align(words_d, nw_d)
-                states = states_d.cpu().numpy().view(np.uint32)
+                parts = [left_align(w, nw) for _st, w, nw in outs]
+                # Filler groups emit no words: only their counts and
+                # states go.
+                flat = np.concatenate([f for f, _ in parts])
+                n_words = np.concatenate([nw for _, nw in parts])[:N]
+                states = np.concatenate(
+                    [st.cpu().numpy() for st, _w, _nw in outs]
+                )[:N].view(np.uint32)
             t0 = self._mark('align_fetch', t0)
             offs = np.concatenate([[0], np.cumsum(n_words)])
             for b in range(B):

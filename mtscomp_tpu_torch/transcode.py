@@ -105,7 +105,8 @@ def transcode(cdata, cmeta=None, out=None, outmeta=None, algorithm='ans',
     Parameters mirror :func:`~.api.decompress` for the source and
     :func:`~.api.compress` for the target. ``device`` is where an ans
     source decodes and an ans target encodes (``'cuda'``, ``'cuda:N'``,
-    ``'cpu'``, ``'none'`` for the host codec, ``'auto'``); None takes the
+    ``'cpu'``, ``'none'`` for the host codec, ``'auto'``: by cost, as
+    ``Reader`` and ``Writer`` decide); None takes the
     configuration's, as ``Reader`` and ``Writer`` do. ``do_time_diff`` /
     ``do_spatial_diff`` default to the source file's flags. Extra
     kwargs reach the target codec via the config merge
@@ -115,7 +116,7 @@ def transcode(cdata, cmeta=None, out=None, outmeta=None, algorithm='ans',
     Raises ``IOError`` if the source fails its stored
     ``sha1_uncompressed`` during the re-derivation.
     """
-    from .api import decompress
+    from .api import _encodes_on_device, decompress
     if out is None:
         raise ValueError("transcode requires an explicit output path "
                          "(the default would shadow the input).")
@@ -186,10 +187,15 @@ def transcode(cdata, cmeta=None, out=None, outmeta=None, algorithm='ans',
                    and r.dtype.itemsize in (2, 4, 8))
         code_dtype = (np.dtype('int%d' % (r.dtype.itemsize * 8))
                       if bitcast else r.dtype)
-        target = _Target(
-            codec, configured_device(cfg.device) if codec.name == 'ans'
-            else None, code_dtype, r.n_channels, order, time_diff,
-            diff_order, spatial_diff)
+        device = configured_device(cfg.device) if codec.name == 'ans' \
+            else None
+        if device is not None and cfg.device == 'auto' \
+                and not _encodes_on_device(
+                    r.n_samples * r.n_channels * r.dtype.itemsize,
+                    code_dtype.itemsize, device):
+            device = None              # 'auto' chose the host codec
+        target = _Target(codec, device, code_dtype, r.n_channels, order,
+                         time_diff, diff_order, spatial_diff)
 
         sha_u, sha_c = hashlib.sha1(), hashlib.sha1()
         offsets = [0]

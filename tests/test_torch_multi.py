@@ -1,7 +1,8 @@
 """PyTorch port: ``decompress_multi`` (several probes, one device batch).
 
 The twin of the JAX package's multi-probe tests (``tests/test_device.py``,
-``tests/test_transform_adapt.py``), without ``mesh``: on the same files,
+``tests/test_transform_adapt.py``), without ``mesh`` (which
+``tests/test_torch_mesh.py`` holds): on the same files,
 the port (``device='cpu'``: the kernels' plain twins) and the JAX package
 (Pallas in interpret mode) give the same arrays, equal to the sources
 (tolerance 0); probes that must not merge fall back per reader; the
@@ -183,13 +184,14 @@ def test_short_probe_and_bad_ranges_raise(tmp_path):
 
 @pytest.mark.parametrize('mesh', [object(), 0, 'mesh'])
 def test_mesh_is_not_ported(tmp_path, mesh):
-    """``mesh`` keeps its place in the signature; any value but None
-    raises and names the ROADMAP item."""
+    """``mesh`` takes a mesh of ``parallel/mesh.py`` or None (the
+    ``mesh=`` path is ported: ``tests/test_torch_mesh.py``); any other
+    value raises TypeError, keyword or positional, before any decode."""
     port, jaxr, _arrs = _open_all(tmp_path, [(_colored(0), {})])
     try:
-        with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
+        with pytest.raises(TypeError, match='chunk_mesh'):
             mt.decompress_multi(port, mesh=mesh)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             tp.decompress_multi(port, mesh, 0, None)     # positional too
     finally:
         _close(port, jaxr)

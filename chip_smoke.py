@@ -121,6 +121,23 @@ t. the tools on the card, each command through ``python -m
    ``StreamWriter`` stream that dies, is resumed and finished = the
    batch compress's bytes, tailed by a ``StreamReader`` on the card (K1
    once a chunk read);
+u. the hardware storm (``mtscomp_tpu_torch.storm.main`` in this
+   process, counts set to 0 just before and read just after): the JAX
+   storm's full grid at its geometry (385 channels, chunks of 4,000
+   samples, 2.5 chunks: every dtype with bitcast floats and the declined
+   8-byte ones, plane and segment tables, aligned and non-aligned
+   layouts, foreign two-fixup tables, C order, spatial diff, no time
+   diff, order 2, the joint probe, the ragged-tail split, adaptive
+   windows, K6's word region, a corrupted file) and 16 random cells of
+   seed 0, each byte-exact against the source and the host codec with
+   its seconds and launches by kernel form logged; every cell must
+   pass (so the wide-dtype cells launch nothing and the corruption
+   surfaces as IOError) and every form of ``STORM_FORMS`` launch;
+v. the entry points of ``entry.py`` (counts set to 0 just before and read
+   just after):
+   ``entry()``'s decode step (K1, K5) on the card equal to the same step
+   on the CPU twins, and ``dryrun_multichip(device_count())`` (K1, K6
+   and K5 on every card, its self-checks) passing;
 i. time the staged decodes (the batch staged on the card once, CUDA
    events, median of repeats) and K1 alone on the whole-file batch
    (B=32, 128 groups), K6 and the device encode staged at B=8
@@ -136,7 +153,7 @@ i. time the staged decodes (the batch staged on the card once, CUDA
    (``device='none'``), host clock with a synchronize, median of 8; and
    ``to_array()`` of the 32-s files on both routes in turns.
 
-The order of the run: a, b, d, c, e-h, w, m, F3, s, k, p, t, i. Then
+The order of the run: a, b, d, c, e-h, w, m, F3, s, k, p, t, u, v, i. Then
 come the host-clock seconds of each phase. The last four lines
 are a JSON summary of the end-to-end and staged timings (with the
 kernel forms no path launches, which are held
@@ -164,7 +181,7 @@ import torch
 
 import mtscomp_tpu_torch as mt
 import mtscomp_tpu_torch.codec.ans as ans_codec
-from mtscomp_tpu_torch import native
+from mtscomp_tpu_torch import entry, native, storm
 from mtscomp_tpu_torch.models import rans
 from mtscomp_tpu_torch.models.rans import GROUP_ROWS, LANES
 from mtscomp_tpu_torch.ops import _build
@@ -2317,6 +2334,70 @@ def check_tools(workdir, recs):
         'chunk read)' % (src.shape[0] // SR))
 
 
+#: Phase u: the storm's random cells after its full grid (the JAX
+#: storm's 27 cells at its full geometry: 385 channels, chunks of 4,000
+#: samples, 2.5 chunks), and the kernel forms the storm must launch.
+STORM_RANDOM = 16
+STORM_GRID = 27
+STORM_FORMS = ('rans_decode_octet', 'rans_decode_coarse_2fixups',
+               'finalize_u8', 'finalize_u8_tail', 'scan_planes_i16_seeded',
+               'scan_transposed_i16_seeded', 'scan_transposed_i32_seeded',
+               'cumsum_time_i16', 'cumsum_time_i32', 'rans_encode')
+
+
+def run_storm(workdir):
+    """Phase u: ``mtscomp_tpu_torch.storm.main`` in this process on the
+    card, the full grid and ``STORM_RANDOM`` random cells of seed 0, the
+    report in the work directory; every cell must pass (the storm itself
+    fails a decode batch without its K1 launch, a device encode of a
+    rANS plane without K6, a wide-dtype cell with any launch, and a
+    corrupted file read without an IOError).
+    Returns the storm's summary with each cell's seconds and launches."""
+    base = workdir / 'storm' / 'GPU_STORM'
+    rc = storm.main(['--random', str(STORM_RANDOM), '--seed', '0',
+                     '--device', DEVICE, '--out', str(base)])
+    report = json.loads(base.with_name(base.name + '.json').read_text())
+    summary, cells = report['summary'], report['cells']
+    for c in cells:
+        log('u. %-26s %s %7.2f s, launches %s%s'
+            % (c['cell'], 'pass' if c['ok'] else 'FAIL', c['secs'],
+               json.dumps(c['launches']),
+               ', host %s' % json.dumps(c['host']) if c['host'] else ''))
+    log('u. storm: %d/%d cells passed in %.1f s; launches over the storm %s; '
+        'chunks on the host codec %s'
+        % (summary['passed'], summary['cells'], summary['seconds'],
+           json.dumps(summary['launches']), json.dumps(summary['host'])))
+    failed = [c['cell'] for c in cells if not c['ok']]
+    require(rc == 0 and not failed, 'storm cells failed: %s' % failed)
+    require(summary['cells'] == STORM_GRID + STORM_RANDOM,
+            'the storm ran %d cells, expected %d'
+            % (summary['cells'], STORM_GRID + STORM_RANDOM))
+    summary['by_cell'] = {c['cell']: {'secs': c['secs'],
+                                      'launches': c['launches']}
+                          for c in cells}
+    return summary
+
+
+def check_entry():
+    """Phase v: ``entry()``'s decode step on the card (K1, K5) equals the
+    same step on the CPU twins byte for byte, and
+    ``dryrun_multichip(device_count())`` (K1, K6, K5 on every card)
+    passes its self-checks."""
+    fn, args = entry.entry()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = fn(*(a.cpu() for a in args))
+    require(got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.cpu(), want),
+            'entry() on the card differs from its twins')
+    n = torch.cuda.device_count()
+    total = entry.dryrun_multichip(n)
+    log('v. entry(): %s %s on the card = the twins; dryrun_multichip(%d) '
+        'passed, checksum %d' % (tuple(got.shape), got.dtype, n, total))
+    return {'shape': list(got.shape), 'dryrun_devices': n,
+            'checksum': total}
+
+
 def host_ms(fn, reps=REPS):
     """Median over ``reps`` of the host-clock time of ``fn()`` followed by
     a synchronize, in ms, after one warm-up call."""
@@ -2826,6 +2907,22 @@ def main():
         done('p profiles and auto')
         check_tools(workdir, recs)
         done('t tools')
+        mt.reset_launch_counts()
+        storm_summary = run_storm(workdir)
+        counts_by_path['storm'] = mt.launch_counts()
+        for key in STORM_FORMS:
+            require(counts_by_path['storm'][key] > 0,
+                    'kernel %s never launched in the storm' % key)
+        done('u storm')
+        mt.reset_launch_counts()
+        entry_run = check_entry()
+        counts_by_path['entry'] = mt.launch_counts()
+        for key in ('rans_decode_octet', 'cumsum_time_i16', 'rans_encode'):
+            require(counts_by_path['entry'][key] > 0,
+                    'kernel %s never launched by the entry phase' % key)
+        log('v. launch counts over the entry phase: %s'
+            % json.dumps(counts_by_path['entry']))
+        done('v entry')
         stagings = time_staged(recs, staged)
         del staged
         staged_encode = time_encode(encoded)
@@ -2863,6 +2960,7 @@ def main():
                             'single_chunk': single_chunk,
                             'decompress_multi': multi,
                             'auto': auto, 'sharded': sharded,
+                            'storm': storm_summary, 'entry': entry_run,
                             'bounded_batches': bounded, 'staged': stagings,
                             'layers_s': layers, 'compress_s': compress_s,
                             'staged_encode': staged_encode,

@@ -240,6 +240,22 @@ def cumulative_freqs(freqs):
     return cum
 
 
+def slot_to_symbol_table(freqs):
+    """Dense slot -> symbol lookup of length SCALE (uint8), 1-D input."""
+    return np.repeat(np.arange(256, dtype=np.uint8),
+                     np.asarray(freqs, dtype=np.int64))
+
+
+def coarse_table(freqs):
+    """256-entry coarse lookup: bucket b (16 slots) -> symbol at slot 16*b.
+
+    With ``min_freq >= 8`` each 16-slot bucket holds at most three
+    symbols, so over a *dense* alphabet two compare-increments finish
+    the lookup: ``id += (slot >= upper[id])`` twice.
+    """
+    return slot_to_symbol_table(np.asarray(freqs, np.int64))[::16].copy()
+
+
 def encoder_tables(freqs):
     """Division-free per-symbol encoder tables (reciprocal scheme).
 

@@ -138,6 +138,16 @@ v. the entry points of ``entry.py`` (counts set to 0 just before and read
    ``entry()``'s decode step (K1, K5) on the card equal to the same step
    on the CPU twins, and ``dryrun_multichip(device_count())`` (K1, K6
    and K5 on every card, its self-checks) passing;
+r. the BASELINE.json report (``mtscomp_tpu_torch.benchmarks.baseline_report``
+   in this process, ``--seconds 8 --reps 3`` on the card: the six
+   configs, staged decodes over bounded batches, windows on the host
+   codec, the card and ``'auto'``, ``decompress_multi`` merged and with
+   ``mesh=chunk_mesh()``) and the harness's device row
+   (``mtscomp_perf(..., device=True)`` of 10 s of ``ap_385``, both
+   algorithms), counts set to 0 just before each and read just after:
+   every byte-exact cell of the report must hold, configs 2 and 4 give a
+   staged rate, K1 launches in configs 2-4 and K6 in the device
+   compress, and the phase takes under 120 s;
 i. time the staged decodes (the batch staged on the card once, CUDA
    events, median of repeats) and K1 alone on the whole-file batch
    (B=32, 128 groups), K6 and the device encode staged at B=8
@@ -153,7 +163,7 @@ i. time the staged decodes (the batch staged on the card once, CUDA
    (``device='none'``), host clock with a synchronize, median of 8; and
    ``to_array()`` of the 32-s files on both routes in turns.
 
-The order of the run: a, b, d, c, e-h, w, m, F3, s, k, p, t, u, v, i. Then
+The order of the run: a, b, d, c, e-h, w, m, F3, s, k, p, t, u, v, r, i. Then
 come the host-clock seconds of each phase. The last four lines
 are a JSON summary of the end-to-end and staged timings (with the
 kernel forms no path launches, which are held
@@ -167,6 +177,7 @@ and power limit, and ``{"ok": true, "device": {"platform": "gpu",
 import concurrent.futures
 import contextlib
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -182,6 +193,7 @@ import torch
 import mtscomp_tpu_torch as mt
 import mtscomp_tpu_torch.codec.ans as ans_codec
 from mtscomp_tpu_torch import entry, native, storm
+from mtscomp_tpu_torch.benchmarks import baseline_report, harness
 from mtscomp_tpu_torch.models import rans
 from mtscomp_tpu_torch.models.rans import GROUP_ROWS, LANES
 from mtscomp_tpu_torch.ops import _build
@@ -992,22 +1004,9 @@ class Recording:
         return r, parsed, fn, args
 
 
-def cuda_ms(fn, reps, inner=1):
-    """Median over ``reps`` of the CUDA-event time of ``inner`` calls,
-    per call, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / inner)
-    return float(np.median(times))
+#: The benchmark harness's timer: the median over ``reps`` of the
+#: CUDA-event time of ``inner`` calls, per call, after one warm-up call.
+cuda_ms = harness.cuda_ms
 
 
 def max_abs_err(a, b, mask=None):
@@ -1645,7 +1644,7 @@ def read_windows(rec):
             require(len(r._dev_cache._cache) == WINDOW_CACHE, '%s: the cache '
                     'holds %d chunks, its size is %d'
                     % (rec.name, len(r._dev_cache._cache), WINDOW_CACHE))
-        on_card = {t.device.type for t in r._dev_cache._cache.values()}
+        on_card = {t.device.type for t, _ in r._dev_cache._cache.values()}
         require(on_card == {torch.device(DEVICE).type},
                 '%s: cached chunks on %s' % (rec.name, on_card))
     finally:
@@ -2398,6 +2397,96 @@ def check_entry():
             'checksum': total}
 
 
+#: Phase r: the BASELINE.json report's arguments, and the most host-clock
+#: seconds the phase may take with the harness's device rows.
+BASELINE_ARGS = ['--device', DEVICE, '--seconds', '8', '--reps', '3']
+BASELINE_LIMIT_S = 120.0
+#: Every byte-exact cell of the report (:func:`exact_cells`), by path.
+BASELINE_EXACT_CELLS = frozenset((
+    'config1.zlib', 'config1.ans', 'config2.staged',
+    'config2.to_array.' + DEVICE, 'config2.to_array.host', 'config3',
+    'config4.decompress_multi', 'config4.staged', 'config4.mesh', 'config5',
+    'config6.ans'))
+
+
+def exact_cells(result, path=()):
+    """``(path, value)`` of every ``exact`` key of the report's nested
+    result (config 6's zlib row is ``bit_exact``: the reference's
+    float-domain codec is not lossless, and is not one of them)."""
+    for key, value in result.items():
+        if isinstance(value, dict):
+            yield from exact_cells(value, path + (key,))
+        elif key == 'exact':
+            yield '.'.join(path), value
+
+
+def run_baseline_report():
+    """Phase r: ``baseline_report.main(BASELINE_ARGS)`` in this process
+    on the card, then the harness's device row
+    (``mtscomp_perf(..., device=True)``: compress and decode on the card)
+    of 10 s of the ``ap_385`` dataset for both algorithms. Every
+    byte-exact cell must hold, the staged rates of configs 2 and 4 be
+    measured, K1 launch in configs 2-4 and K6 in the device compress,
+    all within ``BASELINE_LIMIT_S``. Returns the report's numbers, the
+    rows, and the launches summed over the phase."""
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = baseline_report.main(BASELINE_ARGS)
+    require(rc == 0, 'baseline_report.main returned %d' % rc)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(('#', '|', '(')):
+            log('r. ' + line)
+    res = json.loads(next(line for line in lines
+                          if line.startswith('{"baseline_report"'))
+                     )['baseline_report']
+    cells = dict(exact_cells(res))
+    require(set(cells) == BASELINE_EXACT_CELLS,
+            'the report gave the byte-exact cells %s, not %s'
+            % (sorted(cells), sorted(BASELINE_EXACT_CELLS)))
+    require(all(cells.values()),
+            'byte-exact cells of the report failed: %s'
+            % sorted(k for k, v in cells.items() if not v))
+    for name in ('config2', 'config4'):
+        require(res[name]['staged']['gbps'] is not None,
+                '%s: no staged rate' % name)
+    counts = dict.fromkeys(mt.launch_counts(), 0)
+    for name in ('config%d' % i for i in range(1, 7)):
+        for key, n in res[name]['launches'].items():
+            counts[key] += n
+        if name in ('config2', 'config3', 'config4'):
+            k1 = sum(n for key, n in res[name]['launches'].items()
+                     if key.startswith('rans_decode'))
+            require(k1 > 0, '%s never launched K1' % name)
+    arr, sr = harness.make_dataset('ap_385', 10)
+    rows = {}
+    for algorithm in ('zlib', 'ans'):
+        mt.reset_launch_counts()
+        rows[algorithm] = harness.mtscomp_perf(arr, sr, algorithm=algorithm,
+                                               device=True)
+        launched = mt.launch_counts()
+        for key, n in launched.items():
+            counts[key] += n
+        rows[algorithm]['launches'] = {k: v for k, v in launched.items()
+                                       if v}
+        log('r. mtscomp_perf(ap_385 10 s, %s, device=True): %s'
+            % (algorithm, json.dumps(rows[algorithm])))
+    require(rows['ans']['launches'].get('rans_encode', 0) > 0
+            and rows['ans']['launches'].get('host_encoded_chunks', 0) == 0,
+            'the device compress of mtscomp_perf: %s'
+            % json.dumps(rows['ans']['launches']))
+    seconds = time.perf_counter() - t0
+    log('r. BASELINE.json report and mtscomp_perf on the card: %d byte-exact '
+        'cells, staged %.2f / %.2f GB/s (configs 2 / 4), %.1f s'
+        % (len(cells), res['config2']['staged']['gbps'],
+           res['config4']['staged']['gbps'], seconds))
+    require(seconds < BASELINE_LIMIT_S,
+            'phase r took %.1f s, more than %.0f' % (seconds,
+                                                    BASELINE_LIMIT_S))
+    return {'report': res, 'mtscomp_perf': rows, 'seconds': seconds}, counts
+
+
 def host_ms(fn, reps=REPS):
     """Median over ``reps`` of the host-clock time of ``fn()`` followed by
     a synchronize, in ms, after one warm-up call."""
@@ -2923,6 +3012,8 @@ def main():
         log('v. launch counts over the entry phase: %s'
             % json.dumps(counts_by_path['entry']))
         done('v entry')
+        baseline, counts_by_path['baseline_report'] = run_baseline_report()
+        done('r baseline report')
         stagings = time_staged(recs, staged)
         del staged
         staged_encode = time_encode(encoded)
@@ -2961,6 +3052,7 @@ def main():
                             'decompress_multi': multi,
                             'auto': auto, 'sharded': sharded,
                             'storm': storm_summary, 'entry': entry_run,
+                            'baseline_report': baseline,
                             'bounded_batches': bounded, 'staged': stagings,
                             'layers_s': layers, 'compress_s': compress_s,
                             'staged_encode': staged_encode,

@@ -905,6 +905,18 @@ def _read_payload(reader, idx):
     return pread_exact(reader.cdata, length, start)
 
 
+def _chunk_key(reader, idx, payload=None):
+    """What identifies chunk ``idx`` of a file that grows: the layout,
+    the chunk's sample and byte bounds, and its last four bytes (an ans
+    container's CRC32 of the rest), read from ``payload`` when given."""
+    o0, o1 = reader.chunk_offsets[idx], reader.chunk_offsets[idx + 1]
+    n = min(4, o1 - o0)
+    tail = payload[len(payload) - n:] if payload is not None \
+        else pread_exact(reader.cdata, n, o1 - n)
+    return (reader.n_channels, reader.dtype.str, reader.chunk_bounds[idx],
+            reader.chunk_bounds[idx + 1], o0, o1, bytes(tail))
+
+
 #: Most decoded bytes one decode batch may hold when the configuration
 #: names no ``batch_chunks``: 1 GiB. A batch stages, per decoded byte, at
 #: most about six bytes on the device at once: the word streams (under 1,
@@ -1105,13 +1117,15 @@ class DeviceChunkCache:
     slices on the device and copies only the requested window to the
     host: the host-side LRU chunk cache of ``Reader.read_chunk`` with the
     decode and the slicing moved onto the device. ``capacity`` defaults
-    to the reader's ``cache_size``.
+    to the reader's ``cache_size``. :meth:`adopt` hands the cache on to a
+    later snapshot of the same growing file.
     """
 
     def __init__(self, reader, capacity=None):
         self.reader = reader
         self.capacity = capacity or reader.cache_size
-        #: chunk_idx -> device tensor (ns, C), least recently used first.
+        #: chunk_idx -> (device tensor (ns, C), :func:`_chunk_key`),
+        #: least recently used first.
         self._cache = collections.OrderedDict()
 
     def _chunk(self, idx):
@@ -1121,15 +1135,16 @@ class DeviceChunkCache:
         error of the decode itself propagates."""
         if idx in self._cache:
             self._cache.move_to_end(idx)
-            return self._cache[idx]
+            return self._cache[idx][0]
         r = self.reader
         ns = r.chunk_bounds[idx + 1] - r.chunk_bounds[idx]
-        parsed = [r.codec.parse(_read_payload(r, idx))]
+        payload = _read_payload(r, idx)
+        parsed = [r.codec.parse(payload)]
         dec = DeviceBatchDecoder(r, r.device)
         if not dec.supported(parsed, ns):
             return None
         out = dec.decode_tensor(parsed, ns)[0]      # (ns, C), stays put
-        self._cache[idx] = out
+        self._cache[idx] = out, _chunk_key(r, idx, payload)
         while len(self._cache) > self.capacity:
             self._cache.popitem(last=False)
         return out
@@ -1137,6 +1152,17 @@ class DeviceChunkCache:
     def clear(self):
         """Drop every cached chunk (and the device memory it holds)."""
         self._cache.clear()
+
+    def adopt(self, reader):
+        """Serve ``reader``, a later snapshot of the reader's file on the
+        same device (a live stream's tail re-opens at every sidecar it
+        publishes): keep each cached chunk whose key
+        (:func:`_chunk_key`) is unchanged, drop the others."""
+        for idx, (_, key) in list(self._cache.items()):
+            if idx >= reader.n_chunks or _chunk_key(reader, idx) != key:
+                del self._cache[idx]
+        self.reader = reader
+        reader._dev_cache = self
 
     def read_window(self, i0, i1):
         """Decoded samples [i0, i1) as a fresh writable host ndarray in

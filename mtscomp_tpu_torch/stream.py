@@ -23,10 +23,12 @@ Usage::
 
 Thread-compatible with an acquisition loop: ``append`` does the codec
 work inline (call it from a worker thread to overlap with acquisition);
-each call writes complete chunks straight to disk. Both classes run on
-the host codec (``StreamReader`` opens its readers with
-``device='none'`` unless the caller names a device), as in the JAX
-package: one chunk at a time never fills a device batch.
+each call writes complete chunks straight to disk. ``StreamWriter``
+runs on the host codec, as in the JAX package: one chunk at a time never
+fills a device batch. ``StreamReader`` reads on the configured device,
+as the JAX package's does; its windows go through the device chunk cache
+of each snapshot's ``Reader``, which it hands on to the next snapshot of
+the same file (published chunks never change).
 """
 
 import hashlib
@@ -612,10 +614,7 @@ class StreamReader:
         self.cdata = Path(cdata)
         self.cmeta = Path(cmeta) if cmeta is not None \
             else cmeta_sidecar_path(self.cdata)
-        # A tail re-opens its reader at every snapshot, so a device-side
-        # chunk cache would never live long: host codec unless asked.
-        self._kwargs = dict(kwargs, quiet=kwargs.get('quiet', True),
-                            device=kwargs.get('device', 'none'))
+        self._kwargs = dict(kwargs, quiet=kwargs.get('quiet', True))
         self._reader = None
         self._stamp = None
         self._refresh_failures = 0
@@ -663,6 +662,10 @@ class StreamReader:
         self._refresh_failures = 0
         before = self._reader.shape[0] if self._reader is not None else 0
         if self._reader is not None:
+            # The new snapshot keeps the decoded chunks of the old one.
+            cache = self._reader._dev_cache
+            if cache is not None and r.device == self._reader.device:
+                cache.adopt(r)
             self._reader.close()
         self._reader = r
         self._stamp = stamp

@@ -460,3 +460,76 @@ def test_one_block_span_is_returned_without_a_copy(workdir, decode_calls,
         assert np.array_equal(got, arr)
     finally:
         r.close()
+
+
+# --- StreamReader: the configured device, one chunk cache for the tail -----
+
+def _live(workdir, arr, n):
+    """A live ans stream of ``arr``'s first ``n`` samples (its writer is
+    returned open)."""
+    w = mt.StreamWriter(workdir / 'live.cbin', workdir / 'live.ch',
+                        sample_rate=float(T), n_channels=C, dtype='int16',
+                        algorithm='ans', live_sidecar=True)
+    w.append(arr[:n])
+    return w
+
+
+def test_stream_reader_reads_on_the_configured_device(workdir, decode_calls):
+    """With no device named, the tail's snapshots open on the configured
+    one (the JAX package's rule) and its windows decode through the
+    device chunk cache: one ``decode_tensor`` call a chunk."""
+    mt_config.CONFIG_PATH.write_text(json.dumps({'device': 'cpu'}))
+    arr = _source(seed=5)
+    w = _live(workdir, arr, 2 * T)
+    t = mt.StreamReader(workdir / 'live.cbin', workdir / 'live.ch')
+    try:
+        assert t._reader.device == torch.device('cpu')
+        assert np.array_equal(t[10:T + 40], arr[10:T + 40])
+        assert decode_calls == [1, 1]
+    finally:
+        t.close()
+        w.close()
+
+
+def test_stream_reader_keeps_its_chunk_cache_across_snapshots(
+        workdir, decode_calls):
+    """A published chunk is decoded once for the life of the tail: the
+    next snapshot takes over the cache and decodes only new chunks."""
+    arr = _source(seed=6)
+    w = _live(workdir, arr, 2 * T)
+    t = mt.StreamReader(workdir / 'live.cbin', workdir / 'live.ch',
+                        device='cpu')
+    try:
+        assert np.array_equal(t[5:2 * T], arr[5:2 * T])
+        assert decode_calls == [1, 1]
+        cache = t._reader._dev_cache
+        w.append(arr[2 * T:3 * T + 17])
+        assert t.refresh() and t.n_samples == 3 * T
+        assert t._reader._dev_cache is cache and cache.reader is t._reader
+        assert np.array_equal(t[T:3 * T], arr[T:3 * T])
+        assert decode_calls == [1, 1, 1]
+        w.close()
+        assert t.refresh() and t.finalized
+        assert np.array_equal(t[:], arr[:3 * T + 17])
+    finally:
+        t.close()
+
+
+def test_stream_reader_drops_chunks_a_new_stream_rewrote(workdir,
+                                                         decode_calls):
+    """A stream written anew at the same path keeps the geometry but not
+    the bytes: the cached chunks are dropped and decoded again."""
+    first, second = _source(seed=7), _source(seed=9)
+    w = _live(workdir, first, 2 * T)
+    t = mt.StreamReader(workdir / 'live.cbin', workdir / 'live.ch',
+                        device='cpu')
+    try:
+        assert np.array_equal(t[:2 * T], first[:2 * T])
+        w.close()
+        w = _live(workdir, second, 3 * T)
+        assert t.refresh() and t.n_samples == 3 * T
+        assert np.array_equal(t[:3 * T], second[:3 * T])
+        assert decode_calls == [1] * 5
+    finally:
+        t.close()
+        w.close()

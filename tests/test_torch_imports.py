@@ -37,7 +37,9 @@ def test_the_walk_sees_the_port():
     assert 'mtscomp_tpu_torch/parallel/pipeline.py' in FILES
     assert 'mtscomp_tpu_torch/codec/ans.py' in FILES
     for name in ('verify.py', 'transcode.py', 'stream.py', 'cli.py',
-                 'parallel/distributed.py', 'utils/trace.py'):
+                 'parallel/distributed.py', 'utils/trace.py',
+                 'benchmarks/__init__.py', 'benchmarks/harness.py',
+                 'benchmarks/baseline_report.py', 'benchmarks/plots.py'):
         assert 'mtscomp_tpu_torch/' + name in FILES
     assert len(FILES) >= 26
 

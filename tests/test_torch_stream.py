@@ -661,8 +661,8 @@ def test_stream_begun_by_one_package_resumes_under_the_other(
 def test_stream_written_by_one_package_is_tailed_by_the_other(
         tmp_path_, reader, device):
     """A StreamReader of either package follows the other's live
-    writer; the port's on the host codec by default and on the twins
-    when asked."""
+    writer; the port's on the configured device (here the host codec)
+    when none is named, and on the twins when asked."""
     arr = _stream_source(4, 0)
     writer = ref.StreamWriter if reader == 'port' else StreamWriter
     tail_cls = StreamReader if reader == 'port' else ref.StreamReader

@@ -252,7 +252,7 @@ def test_lru_evicts_at_cache_size(reader_and_arr, decode_calls):
     # A window over more chunks than the cache holds is still whole.
     _same(r[:], arr)
     assert list(cache._cache) == [r.n_chunks - 2, r.n_chunks - 1]
-    assert all(t.device.type == 'cpu' for t in cache._cache.values())
+    assert all(t.device.type == 'cpu' for t, _ in cache._cache.values())
 
 
 def test_windows_are_fresh_and_writable(reader_and_arr):

@@ -148,6 +148,15 @@ r. the BASELINE.json report (``mtscomp_tpu_torch.benchmarks.baseline_report``
    every byte-exact cell of the report must hold, configs 2 and 4 give a
    staged rate, K1 launches in configs 2-4 and K6 in the device
    compress, and the phase takes under 120 s;
+j. the headline bench (``python -m mtscomp_tpu_torch.bench`` in a child
+   process, as a user runs it, with ``BENCH_ENV``: 8 s of the 385-channel
+   walk and a global budget of ``BENCH_ENV['BENCH_BUDGET']`` seconds;
+   each of its phases in a child of its own): it must exit 0 with every
+   byte check held, a staged decode rate, the card's name and power
+   limit, K1 octet and K3 (and nothing else) in its staged decode, K6 in
+   its device encode and in its compress on the card with no chunk left
+   to the host codec, and both ``tofile()`` routes timed; its launches
+   by phase count as the path ``bench``;
 i. time the staged decodes (the batch staged on the card once, CUDA
    events, median of repeats) and K1 alone on the whole-file batch
    (B=32, 128 groups), K6 and the device encode staged at B=8
@@ -163,9 +172,9 @@ i. time the staged decodes (the batch staged on the card once, CUDA
    (``device='none'``), host clock with a synchronize, median of 8; and
    ``to_array()`` of the 32-s files on both routes in turns.
 
-The order of the run: a, b, d, c, e-h, w, m, F3, s, k, p, t, u, v, r, i. Then
-come the host-clock seconds of each phase. The last four lines
-are a JSON summary of the end-to-end and staged timings (with the
+The order of the run: a, b, d, c, e-h, w, m, F3, s, k, p, t, u, v, r, j, i.
+Then come the host-clock seconds of each phase. The last five lines are
+the bench's JSON line (``{"bench": ...}``), a JSON summary of the end-to-end and staged timings (with the
 kernel forms no path launches, which are held
 against their twins only), a JSON object with one entry per kernel
 form that the paths launch (its launches in total and by path, its
@@ -192,7 +201,7 @@ import torch
 
 import mtscomp_tpu_torch as mt
 import mtscomp_tpu_torch.codec.ans as ans_codec
-from mtscomp_tpu_torch import entry, native, storm
+from mtscomp_tpu_torch import bench, entry, native, storm
 from mtscomp_tpu_torch.benchmarks import baseline_report, harness
 from mtscomp_tpu_torch.models import rans
 from mtscomp_tpu_torch.models.rans import GROUP_ROWS, LANES
@@ -2487,6 +2496,61 @@ def run_baseline_report():
     return {'report': res, 'mtscomp_perf': rows, 'seconds': seconds}, counts
 
 
+#: Phase j: the bench's environment (seconds of data, global budget in
+#: seconds), and the most seconds its process may take, its own start
+#: and the kill of a phase at the budget's end included.
+BENCH_ENV = {'BENCH_SECONDS': '8', 'BENCH_BUDGET': '400'}
+BENCH_LIMIT_S = 460.0
+
+
+def run_bench(kind):
+    """Phase j: ``python -m mtscomp_tpu_torch.bench`` in a child process
+    (its process group killed at ``BENCH_LIMIT_S``), its log lines
+    logged. Returns its JSON line and its launches summed over its
+    phases."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc, out = bench.run_module([], BENCH_LIMIT_S, env=BENCH_ENV)
+    seconds = time.perf_counter() - t0
+    for text in out.splitlines():
+        if text.startswith('[bench]'):
+            log('j. ' + text[:400])
+    lines = [text for text in out.splitlines()
+             if text.startswith('{') and '"metric"' in text]
+    require(rc == 0 and lines, 'the bench exited %s after %.1f s:\n%s'
+            % (rc, seconds, out[-3000:]))
+    line = json.loads(lines[-1])
+    launches = line['launches']
+    require(line['byte_exact'] and line['value'] is not None
+            and not line['phase_errors'], 'the bench: %s' % lines[-1])
+    require(line['device']['platform'] == 'gpu'
+            and line['device']['name'] == kind
+            and line['device']['power_limit'] is not None,
+            'the bench named the card %s' % json.dumps(line['device']))
+    require(set(launches['dev_decode']) == set(bench.DECODE_FORMS),
+            'the bench\'s staged decode launched %s'
+            % json.dumps(launches['dev_decode']))
+    for phase in ('encode', 'dev_encode'):
+        require(launches[phase].get('rans_encode', 0) > 0
+                and not launches[phase].get('host_encoded_chunks'),
+                'the bench\'s %s launched %s'
+                % (phase, json.dumps(launches[phase])))
+    require(line['e2e_decomp_mbps'] is not None
+            and line['e2e_host_mbps'] is not None,
+            'the bench timed tofile() on one route only')
+    counts = dict.fromkeys(mt.launch_counts(), 0)
+    for by_form in launches.values():
+        for key, n in by_form.items():
+            counts[key] += n
+    log('j. the bench: %.3f GB/s staged (K1 + K3), e2e %.1f MB/s on the '
+        'card, %.1f on the host; encode %.1f MB/s on the host, %.1f on the '
+        'card; K6 %.3f GB/s; %.1f s'
+        % (line['value'], line['e2e_decomp_mbps'], line['e2e_host_mbps'],
+           line['encode_mbps'], line['device_compress_mbps'],
+           line['device_encode_gbps'], seconds))
+    return line, counts
+
+
 def host_ms(fn, reps=REPS):
     """Median over ``reps`` of the host-clock time of ``fn()`` followed by
     a synchronize, in ms, after one warm-up call."""
@@ -3014,6 +3078,8 @@ def main():
         done('v entry')
         baseline, counts_by_path['baseline_report'] = run_baseline_report()
         done('r baseline report')
+        bench_line, counts_by_path['bench'] = run_bench(kind)
+        done('j bench')
         stagings = time_staged(recs, staged)
         del staged
         staged_encode = time_encode(encoded)
@@ -3042,6 +3108,7 @@ def main():
             'the port loaded the JAX package')
     # The summary sits next to the last line, so that a log that keeps
     # only the end of the output still holds every number.
+    log(json.dumps({'bench': bench_line}))
     log(json.dumps(rounded({'build_s': build_s, 'native_build_s': native_s,
                             'phase_s': phase_s,
                             'ptxas': resources, 'dynamic_smem': smem,

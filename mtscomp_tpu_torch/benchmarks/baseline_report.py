@@ -65,20 +65,21 @@ def _synth_gradient(ns, nc, lo, hi, seed=0):
                       clip=True)
 
 
-def _device_ms(fn, reps, device):
-    """Median ms of ``fn()`` after a warm-up: CUDA events on a card, the
-    host clock on the twins."""
+def _device_ms(fn, reps, device, inner=1):
+    """Median ms of ``fn()`` after a warm-up: CUDA events over ``inner``
+    calls a repeat on a card, the host clock of one call on the twins."""
     if device.type == 'cuda':
-        return cuda_ms(fn, reps)
+        return cuda_ms(fn, reps, inner)
     return 1e3 * _median_time(fn, reps)
 
 
-def _staged_decode_rate(readers, T, arrs, reps):
+def _staged_decode_rate(readers, T, arrs, reps, inner=1):
     """Staged device decode of the readers' chunks of ``T`` samples (a
     shorter last chunk is left out), merged reader-major as
     ``decompress_multi`` cuts them, in bounded batches: ``(GB/s,
     byte-exact, batches, most chunks in a batch)``, or ``(None, False, 0,
-    0)`` when a batch is not one the device decodes."""
+    0)`` when a batch is not one the device decodes. ``inner`` calls
+    a timed repeat on a card (:func:`_device_ms`)."""
     from ..parallel.pipeline import (DeviceBatchDecoder, _uniform_batches,
                                      check_words_used)
     r0 = readers[0]
@@ -98,7 +99,7 @@ def _staged_decode_rate(readers, T, arrs, reps):
                               for g, a in zip(got, arrs))
         nbytes += got.nbytes
         del out, used, got
-        total_ms += _device_ms(lambda: fn(*args), reps, dec.device)
+        total_ms += _device_ms(lambda: fn(*args), reps, dec.device, inner)
         n_batches += 1
         widest = max(widest, len(parsed))
         del fn, args, parsed

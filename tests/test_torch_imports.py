@@ -39,7 +39,8 @@ def test_the_walk_sees_the_port():
     for name in ('verify.py', 'transcode.py', 'stream.py', 'cli.py',
                  'parallel/distributed.py', 'utils/trace.py',
                  'benchmarks/__init__.py', 'benchmarks/harness.py',
-                 'benchmarks/baseline_report.py', 'benchmarks/plots.py'):
+                 'benchmarks/baseline_report.py', 'benchmarks/plots.py',
+                 'bench.py'):
         assert 'mtscomp_tpu_torch/' + name in FILES
     assert len(FILES) >= 26
 

@@ -259,8 +259,9 @@ def test_cuda_device_raises_without_a_gpu(tmp_path_, monkeypatch):
 
 def test_port_never_imports_jax(tmp_path_):
     """Compressing and decoding with the port, reading a window,
-    verifying, transcoding, streaming, decoding two probes and running a
-    command of its CLI load neither JAX nor any module of the JAX
+    verifying, transcoding, streaming, decoding two probes, running a
+    command of its CLI and a phase of its bench (``--device cpu``) load
+    neither JAX nor any module of the JAX
     package (this test process has both loaded already, so it runs in a
     fresh one)."""
     script = textwrap.dedent("""
@@ -312,6 +313,16 @@ def test_port_never_imports_jax(tmp_path_):
         cli.main(['mtsdecomp', d + '/z.cbin', '-o', d + '/z.bin',
                   '--device', 'none'])
         assert open(d + '/z.bin', 'rb').read() == arr.tobytes()
+        import json, os
+        from mtscomp_tpu_torch import bench
+        b = d + '/bench'
+        os.mkdir(b)
+        arr.tofile(b + '/bench.bin')
+        open(b + '/bench.json', 'w').write(json.dumps(
+            {'device': 'cpu', 'seconds': 2, 'sample_rate': 1000.0,
+             'n_channels': 129}))
+        bench.main(['--phase', 'encode', '--dir', b])   # a bench phase
+        assert json.load(open(b + '/phase_encode.json'))['byte_exact']
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'mtscomp_tpu')]
         assert not bad, 'loaded %s' % bad

@@ -25,12 +25,20 @@ d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks; the
      the fuse8 route (an LFP-like band) and the generic route, C order
      (plane tables), spatial diff, flags bit6 without the tail packing,
      uint8, int8, int32, bitcast float32 under a second-order diff, a
-     RAW low plane, and tables from another writer needing one and two
-     fixups; and 8 s each, a file whose plane modes change after 4 s
-     (walk, then spikes) and a drifting file compressed with adaptive
-     windows of 4 chunks (walk, then a slow oscillation);
+     RAW low plane, tables from another writer needing one and two
+     fixups, and C order under segment tables; and 8 s each, a file
+     whose plane modes change after 4 s (walk, then spikes), one whose
+     last second is spiky (a mode sub-batch of one chunk), and drifting
+     files compressed with adaptive windows of 4 and of 3 chunks (walk,
+     then a slow oscillation);
+   - the layouts the port fuses and the JAX package does not
+     (``FUSE8_GEOMETRIES``), 2 s each: chunks of 16,769 samples (a step
+     count with no divisor in 8..128, tp = T - 1), another writer's
+     segments of 5 channels, and 1025 channels (a bit6 tail behind 8
+     full groups);
 c. hold every kernel form against its plain PyTorch twin on the card,
-   at the shapes the decode of those files gives it (byte equality),
+   at the shapes the decode of those files gives it (byte equality;
+   ``FUSE8_GEOMETRIES`` included),
    K6 on the encode's B=8 batches of both 32-s files; hold K4's plane
    form against its twin and against the plane combine + element form
    (or the finalize) on batches with two coded planes, a CONST and a RAW
@@ -56,8 +64,9 @@ e-g. decode path by path, with every launch count set to 0 just before
    ``mtscomp_tpu_torch.decompress(..., device='cuda')`` with
    ``.to_array()`` and ``.tofile()`` (and ``.to_tensor()`` for the two
    32-s files), check each byte for byte against its source, check
-   that every kernel form of the path was launched and that no chunk
-   went to the host codec;
+   that every kernel form of the path was launched (the path
+   ``fuse8_geometries``: K1 octet, K2 and K3 and no generic form) and
+   that no chunk went to the host codec;
 h. drop one word, then half the words, of one group's stream and
    expect the word audit's IOError, on both routes;
 w. random-access windows on the card, path by path (``WINDOW_PATHS``:
@@ -90,9 +99,10 @@ k. encode path by path (the two 32-s files, then the branch files),
    counts set to 0 just before and read just after: compress each
    through ``mtscomp_tpu_torch.compress(..., device='cuda')``, check the
    ``.cbin`` and ``.ch`` are byte-identical to the host route's, that K6
-   launched and that no chunk went to the host codec (int32 excepted:
-   ``supported()`` declines it, and all its chunks must go there), and
-   decode each device-encoded file through the port to its source;
+   launched and that no chunk went to the host codec (the path
+   ``encode_opened``: int32, bitcast float32, C order under segment
+   tables, a mode sub-batch of one chunk, window runs of 2), and decode
+   each device-encoded file through the port to its source;
 p. the measured ``'auto'`` route: ``link_profile()`` and
    ``host_profile()`` measured afresh, the CPU count, and the first-call
    cost (a fresh child process's first device decode, kernels built);
@@ -147,7 +157,8 @@ r. the BASELINE.json report (``mtscomp_tpu_torch.benchmarks.baseline_report``
    algorithms), counts set to 0 just before each and read just after:
    every byte-exact cell of the report must hold, configs 2 and 4 give a
    staged rate, K1 launches in configs 2-4 and K6 in the device
-   compress, and the phase takes under 120 s;
+   compress and in config 6's (float32) with no chunk on the host
+   codec, and the phase takes under 120 s;
 j. the headline bench (``python -m mtscomp_tpu_torch.bench`` in a child
    process, as a user runs it, with ``BENCH_ENV``: 8 s of the 385-channel
    walk and a global budget of ``BENCH_ENV['BENCH_BUDGET']`` seconds;
@@ -163,7 +174,10 @@ i. time the staged decodes (the batch staged on the card once, CUDA
    (checked against the host codec first), ``compress()`` of the 32-s
    files on both routes and by layer, each kernel form against its
    twin, its bound and, where one PyTorch call computes the same
-   function, that call, and the scans alone at B=2 and B=32
+   function, that call; the staged decode of each of
+   ``FUSE8_GEOMETRIES`` on the fused route and on the generic route
+   with the JAX package's routing forced back; the scans alone at B=2
+   and B=32
    (``SCAN_SHAPES``), with K3 at B=32, and K2 over channel counts on
    and off the 32-byte sector grid (``FINALIZE_CHANNELS``); the staged
    decode of ONE chunk (B=1, what a window stages) with K1 and K3 or
@@ -387,10 +401,12 @@ FINALIZE_EDGE_CASES.update({
     if CB or variant != 'tail_off_grid'})
 
 #: Recordings: name -> (signal, seconds, channels, dtype, seed, compress
-#: options, foreign writer's minimum frequency or None, expected
-#: (route, rANS planes, bit6, K1 fixups) of its first batch, or None where
-#: the modes or the transform change between chunks). Route 'fuse8' or
-#: 'generic'.
+#: options, another writer's choice or None (``('min_freq', n)``: its
+#: tables, :func:`foreign_quantizer`; ``('k', n)``: its segments of n
+#: channels, :func:`foreign_geometry`), expected (route, rANS planes,
+#: bit6, K1 fixups) of its first batch, or None where the modes or the
+#: transform change between chunks). Route 'fuse8' or 'generic'. Chunks
+#: are 1 s (``SR`` samples) unless the options name a ``chunk_duration``.
 RECORDINGS = {
     'int16_385ch': ('walk', SECONDS, 385, 'int16', 0, ORDER1, None,
                     ('fuse8', 1, True, 0)),
@@ -427,11 +443,11 @@ RECORDINGS = {
     'raw_low_plane': ('wide', BRANCH_SECONDS, 385, 'int16', 13, ORDER1, None,
                       ('generic', 1, True, 0)),
     'foreign_1fixup': ('walk', BRANCH_SECONDS, 385, 'int16', 14,
-                       dict(ORDER1, ans_table_mode='plane'), 16,
-                       ('fuse8', 1, True, 1)),
+                       dict(ORDER1, ans_table_mode='plane'),
+                       ('min_freq', 16), ('fuse8', 1, True, 1)),
     'foreign_2fixups': ('heavy', BRANCH_SECONDS, 385, 'int16', 15,
-                        dict(ORDER1, ans_table_mode='plane'), 9,
-                        ('generic', 2, False, 2)),
+                        dict(ORDER1, ans_table_mode='plane'),
+                        ('min_freq', 9), ('generic', 2, False, 2)),
     # One batch of 8 chunks: 4 with a constant high byte, then 4 with
     # both planes coded (two mode-uniform device sub-batches).
     'mixed_modes': ('walk_then_spiky', SHORT_SECONDS, 385, 'int16', 16,
@@ -439,7 +455,36 @@ RECORDINGS = {
     # Windows of 4 chunks re-probe the transform (bit5 stamps).
     'adaptive': ('walk_then_slow', SHORT_SECONDS, 385, 'int16', 17,
                  {'transform_adapt': 4, 'n_threads': BATCH}, None, None),
+    # Fused on the card, generic in the JAX package (its Pallas step
+    # blocks, 128-lane channel tiles, tp >= T and tail block): chunks of
+    # 16,769 samples (4 channels a segment, S = 4 x 131 steps with no
+    # divisor in 8..128, tp = T - 1; a shorter last chunk), another
+    # writer's segments of 5 channels (32 x 5 rows, K2), and 1025
+    # channels (a bit6 tail behind 8 full groups of 4-channel segments,
+    # 1,152 rows).
+    'fuse8_odd_steps': ('walk', BRANCH_SECONDS, 385, 'int16', 18,
+                        dict(ORDER1, chunk_duration=16769 / SR), None,
+                        ('fuse8', 1, True, 0)),
+    'fuse8_k5': ('walk', BRANCH_SECONDS, 385, 'int16', 19, ORDER1, ('k', 5),
+                 ('fuse8', 1, False, 0)),
+    'fuse8_1025ch': ('walk', BRANCH_SECONDS, 1025, 'int16', 20, ORDER1, None,
+                     ('fuse8', 1, True, 0)),
+    # Encode routes the JAX package leaves to its host codec: C order
+    # under segment tables; one Writer batch of 7 walk chunks and 1
+    # spiky one (mode sub-batches of 7 and 1); windows of 3 chunks
+    # re-probing the transform (window runs of 6 and 2 chunks).
+    'c_order_segment': ('spiky', BRANCH_SECONDS, 385, 'int16', 21,
+                        dict(ORDER1, chunk_order='C'), None,
+                        ('generic', 2, False, 0)),
+    'mixed_runt': ('walk_then_one_spiky', SHORT_SECONDS, 385, 'int16', 22,
+                   dict(ORDER1, n_threads=BATCH), None, None),
+    'adaptive_runts': ('walk_then_slow', SHORT_SECONDS, 385, 'int16', 23,
+                       {'transform_adapt': 3, 'n_threads': BATCH}, None,
+                       None),
 }
+#: The layouts only the port fuses (``RECORDINGS``' note), decoded and
+#: timed on both routes as a path of their own.
+FUSE8_GEOMETRIES = ('fuse8_odd_steps', 'fuse8_k5', 'fuse8_1025ch')
 
 #: Paths, each driven with the counts set to 0 just before it: name ->
 #: (recordings, kernel forms that must have launched, forms that must
@@ -454,30 +499,40 @@ PATHS = {
                 ('rans_decode_octet', 'scan_planes_i16_seeded'),
                 ('scan_transposed_i16_seeded',)),
     'branches': (tuple(name for name, r in RECORDINGS.items()
-                       if r[1] == BRANCH_SECONDS)
+                       if r[1] == BRANCH_SECONDS
+                       and name not in FUSE8_GEOMETRIES)
                  + ('mixed_modes', 'adaptive'),
                  ('rans_decode_octet', 'rans_decode_coarse_1fixup',
                   'rans_decode_coarse_2fixups', 'finalize_u8_tail',
                   'scan_planes_i16_seeded', 'scan_transposed_i16_seeded',
                   'scan_transposed_i32_seeded', 'cumsum_time_i16',
                   'cumsum_time_i32'), ()),
+    'fuse8_geometries': (FUSE8_GEOMETRIES,
+                         ('rans_decode_octet', 'finalize_u8',
+                          'finalize_u8_tail'),
+                         ('scan_planes_i16_seeded',
+                          'scan_transposed_i16_seeded',
+                          'scan_transposed_i32_seeded', 'cumsum_time_i16')),
 }
 
 #: Encode paths, each driven with the counts set to 0 just before it:
 #: name -> (recordings, kernel forms that must have launched). Files from
-#: another writer's tables are not this writer's bytes, and bitcast
-#: float32 codes 4-byte integers, which the device encode declines.
+#: another writer are not this writer's bytes. Every chunk of every path
+#: encodes on the card: ``encode_opened`` holds what the JAX package
+#: leaves to its host codec (4-byte elements, bitcast float32 included;
+#: C order under segment tables; mode sub-batches and window runs under
+#: 4 chunks).
 ENCODE_PATHS = {
     'encode_main': (('int16_385ch', 'spiky_int16_385ch'), ('rans_encode',)),
     'encode_branches': (('int16_384ch', 'uint16_385ch', 'order2_fuse8',
                          'order2_generic', 'c_order', 'spatial',
-                         'bit6_spatial', 'uint8', 'int8', 'int32',
-                         'raw_low_plane', 'mixed_modes', 'adaptive'),
+                         'bit6_spatial', 'uint8', 'int8', 'raw_low_plane',
+                         'mixed_modes', 'adaptive', 'fuse8_odd_steps',
+                         'fuse8_1025ch'),
                         ('rans_encode',)),
+    'encode_opened': (('int32', 'float32_order2', 'c_order_segment',
+                       'mixed_runt', 'adaptive_runts'), ('rans_encode',)),
 }
-#: Recordings whose every chunk the device route must leave to the host
-#: codec (``supported()`` declines 4-byte integers).
-HOST_ENCODED = {'int32'}
 ENCODED = {name for names, _forms in ENCODE_PATHS.values() for name in names}
 
 #: The forms some path launches. The others, K4's inclusive scans, run
@@ -607,6 +662,20 @@ def foreign_quantizer(min_freq):
 
     return lambda sums: np.stack([quantize(r) for r in np.asarray(sums)]
                                  ).astype(np.uint16)
+
+
+def foreign_geometry(k):
+    """Another writer's channel-aligned segments: a drop-in for
+    ``mtscomp_tpu_torch.codec.ans.aligned_geometry`` that puts ``k``
+    channels in every segment (this codec's writer takes multiples of 4;
+    the format stores k in the header and every reader takes any). The
+    port's CPU tests import it from here."""
+    def geometry(n_coded, n_head, _seg0):
+        tcs = n_coded // n_head
+        tp = -(-tcs // LANES) * LANES
+        return k, k * tp, tp, tcs, n_head * tp
+
+    return geometry
 
 
 def edge_groups(name, n_groups=2):
@@ -849,9 +918,10 @@ def slow_second(s, n_channels, freq, phase):
 
 
 def make_recording(path, kind, seconds, n_channels, dtype, seed):
-    """Seeded signal, written one 1-s chunk at a time. The kinds
+    """Seeded signal, written one second at a time. The kinds
     ``walk_then_spiky`` and ``walk_then_slow`` switch from the walk to
-    the spiky walk or the slow oscillation halfway through."""
+    the spiky walk or the slow oscillation halfway through,
+    ``walk_then_one_spiky`` for its last second."""
     rng = np.random.default_rng(seed)
     arr = np.empty((seconds * SR, n_channels), dtype=dtype)
     level = np.zeros(n_channels)
@@ -866,6 +936,8 @@ def make_recording(path, kind, seconds, n_channels, dtype, seed):
                 walk = level + slow_second(s, n_channels, freq, phase)
             else:
                 sub = {'walk_then_spiky': 'spiky' if late else 'walk',
+                       'walk_then_one_spiky': ('spiky' if s == seconds - 1
+                                               else 'walk'),
                        'walk_then_slow': 'walk'}.get(kind, kind)
                 walk = level + np.cumsum(
                     signal_second(rng, sub, n_channels), axis=0)
@@ -900,7 +972,7 @@ class Recording:
     """A compressed test recording and its source samples."""
 
     def __init__(self, workdir, name, arr, made_s):
-        (kind, seconds, n_channels, dtype, _seed, opts, min_freq,
+        (kind, seconds, n_channels, dtype, _seed, opts, foreign,
          self.expect) = RECORDINGS[name]
         self.name = name
         self.raw = workdir / (name + '.bin')
@@ -911,15 +983,21 @@ class Recording:
                            dtype=dtype, algorithm='ans', quiet=True,
                            check_after_compress=False, **opts)
         self.arr = arr
+        #: Samples a chunk (the last one may be shorter).
+        self.chunk = int(round(opts.get('chunk_duration', 1.0) * SR))
         t1 = time.perf_counter()
-        quantize_rows = ans_codec._quantize_rows
-        if min_freq is not None:
-            ans_codec._quantize_rows = foreign_quantizer(min_freq)
+        seams = (('_quantize_rows', foreign_quantizer),
+                 ('aligned_geometry', foreign_geometry))
+        saved = {attr: getattr(ans_codec, attr) for attr, _ in seams}
+        if foreign is not None:
+            attr, make = seams[('min_freq', 'k').index(foreign[0])]
+            setattr(ans_codec, attr, make(foreign[1]))
         try:
             mt.compress(self.raw, self.cbin, self.ch, device='none',
                         **self.kwargs)
         finally:
-            ans_codec._quantize_rows = quantize_rows
+            for attr, fn in saved.items():
+                setattr(ans_codec, attr, fn)
         t2 = time.perf_counter()
         #: compress() on the host route, host clock (s).
         self.host_compress_s = t2 - t1
@@ -987,15 +1065,17 @@ class Recording:
 
     def staged(self, n_chunks=BATCH):
         """(reader, parsed chunks, fn, staged tensors) for the first
-        ``n_chunks`` chunks, staged on the card; checks the file has the
-        layout its name promises."""
+        ``n_chunks`` chunks of ``self.chunk`` samples, staged on the card;
+        checks the file has the layout its name promises."""
         r = self.reader()
+        bounds = r.chunk_bounds
         parsed = [r.codec.parse(_read_payload(r, i))
-                  for i in range(min(n_chunks, r.n_chunks))]
+                  for i in range(min(n_chunks, r.n_chunks))
+                  if bounds[i + 1] - bounds[i] == self.chunk]
         dec = DeviceBatchDecoder(r, DEVICE)
-        require(dec.supported(parsed, SR), '%s: batch not supported'
+        require(dec.supported(parsed, self.chunk), '%s: batch not supported'
                 % self.name)
-        fn, args = dec.pack(parsed, SR)
+        fn, args = dec.pack(parsed, self.chunk)
         route, n_rans, bit6, fixups = self.expect
         got_route = 'fuse8' if fn.func is _decode_fuse8 else 'generic'
         got_fixups = (fn.keywords['fixups'] if got_route == 'fuse8'
@@ -1073,7 +1153,8 @@ def finalize_call(bulk, tail_block, heads, hi):
 
 
 def check_kernels(recs):
-    """Phase c: every kernel form against its twin at the path's shapes.
+    """Phase c: every kernel form against its twin at the path's shapes,
+    the layouts only the port fuses (``FUSE8_GEOMETRIES``) included.
     Returns ``{name: (kernel, twin, args, kwargs, err)}``, at the first
     batch that ran each form, and the staged batches kept for phases h
     and i."""
@@ -1090,7 +1171,8 @@ def check_kernels(recs):
 
     for name in ('int16_385ch', 'int16_384ch', 'spiky_int16_385ch', 'int32',
                  'foreign_1fixup', 'foreign_2fixups', 'order2_generic',
-                 'raw_low_plane'):
+                 'raw_low_plane') + FUSE8_GEOMETRIES:
+        T = recs[name].chunk
         r, parsed, fn, args = recs[name].staged()
         k1_name, kernel, twin, k1_args, k1_kw = k1_calls(fn, args)
         live = (torch.arange(k1_args[-1] * LANES, device=args[4].device)
@@ -1106,14 +1188,14 @@ def check_kernels(recs):
             hi = const_vals[:, 0]
             key, kernel, twin, f_args = finalize_call(bulk, tail_block,
                                                       heads, hi)
-            out = record(key, kernel, twin, f_args, {'n_samples': SR})
+            out = record(key, kernel, twin, f_args, {'n_samples': T})
             done.append(key)
             # The finalize is the plane form with a CONST high plane (its
             # two channel blocks joined here): two load stages, one result.
             C = heads.shape[1]
             lo = bulk[:, :C] if tail_block is None else torch.cat(
                 [bulk, tail_block[:, :C - bulk.shape[1]]], dim=1)
-            check_plane_form(held, (lo[:, :, :SR - 1], hi), heads, True, out)
+            check_plane_form(held, (lo[:, :, :T - 1], hi), heads, True, out)
             done.append('K4 plane form (CONST high plane) = %s'
                         % key.split('(')[1][:2])
         else:
@@ -1124,7 +1206,7 @@ def check_kernels(recs):
             out = record('scan_transposed %s, head-seeded (K4)' % width,
                          dd.cumsum_time_transposed,
                          dd.cumsum_time_transposed_ref, (ct, heads),
-                         {'n_samples': SR})
+                         {'n_samples': T})
             record('scan_transposed %s, inclusive (K4)' % width,
                    dd.cumsum_time_transposed, dd.cumsum_time_transposed_ref,
                    (ct,), {})
@@ -1174,11 +1256,12 @@ def staged_planes(syms, const_vals, raw_vals, lay):
 def check_plane_form(record, planes, heads, zigzag, want):
     """K4's plane form on a staged batch's planes: both modes against the
     twin, and the head-seeded one against ``want``, what the route's other
-    kernels made of the same batch."""
+    kernels made of the same batch (the head and the coded samples)."""
+    n_samples = next(p.shape[2] for p in planes if p.dim() == 3) + 1
     out = record('scan_transposed planes int16, head-seeded (K4)',
                  dd.cumsum_time_transposed_planes,
                  dd.cumsum_time_transposed_planes_ref, planes + (heads,),
-                 {'n_samples': SR, 'zigzag': zigzag})
+                 {'n_samples': n_samples, 'zigzag': zigzag})
     require(torch.equal(out, want), 'K4\'s plane form differs from the '
             'route\'s other kernels on the same batch')
     record('scan_transposed planes int16, inclusive (K4)',
@@ -1401,10 +1484,9 @@ def drive_encode_paths(recs):
     for path, (names, kernels) in ENCODE_PATHS.items():
         mt.reset_launch_counts()
         for name in names:
-            dt, n_host, n_chunks = recs[name].device_compress()
-            want = n_chunks if name in HOST_ENCODED else 0
-            require(n_host == want, '%s: %d chunks went to the host codec, '
-                    'expected %d' % (name, n_host, want))
+            dt, n_host, _n_chunks = recs[name].device_compress()
+            require(n_host == 0, '%s: %d chunks went to the host codec'
+                    % (name, n_host))
             times[name] = {'device_s': dt,
                            'host_s': recs[name].host_compress_s}
         torch.cuda.synchronize()
@@ -1415,11 +1497,9 @@ def drive_encode_paths(recs):
         for key in kernels:
             require(counts[key] > 0, 'kernel %s never launched on the %s '
                     'path' % (key, path))
-        want = sum(recs[n].arr.shape[0] // SR for n in names
-                   if n in HOST_ENCODED)
-        require(counts['host_encoded_chunks'] == want,
-                '%d chunks went to the host codec on the %s path, expected '
-                '%d' % (counts['host_encoded_chunks'], path, want))
+        require(counts['host_encoded_chunks'] == 0,
+                '%d chunks went to the host codec on the %s path'
+                % (counts['host_encoded_chunks'], path))
     return times, counts_by_path
 
 
@@ -2460,6 +2540,10 @@ def run_baseline_report():
     for name in ('config2', 'config4'):
         require(res[name]['staged']['gbps'] is not None,
                 '%s: no staged rate' % name)
+    # Config 6's float32 file encodes on the card (K6, bitcast int32).
+    require(res['config6']['launches'].get('rans_encode', 0) > 0
+            and not res['config6']['launches'].get('host_encoded_chunks'),
+            'config6 launches %s' % json.dumps(res['config6']['launches']))
     counts = dict.fromkeys(mt.launch_counts(), 0)
     for name in ('config%d' % i for i in range(1, 7)):
         for key, n in res[name]['launches'].items():
@@ -2735,7 +2819,7 @@ def time_staged(recs, staged):
     for name, (r, parsed, fn, args) in staged.items():
         out, used = fn(*args)
         check_words_used(parsed, used)
-        arr = recs[name].arr[:len(parsed) * SR]
+        arr = recs[name].arr[:len(parsed) * recs[name].chunk]
         require(np.array_equal(out.cpu().numpy().reshape(arr.shape),
                                arr.view(out.cpu().numpy().dtype)),
                 '%s: staged decode differs from the source' % name)
@@ -2771,6 +2855,51 @@ def time_staged(recs, staged):
             ' of decoded output' % (name, st['ms'], st['batch_chunks'],
                                     st['gbps']))
     return stagings
+
+
+def time_fuse8_geometries(recs):
+    """Phase i: the staged decode of each layout only the port fuses
+    (``FUSE8_GEOMETRIES``: a batch of up to ``BATCH`` chunks of the
+    recording's first run), on the fused route and on the generic route
+    with the JAX package's routing forced back (``_fuse8_geom`` saying
+    no): both byte-exact, CUDA events, median of ``REPS``."""
+    out = {}
+    for name in FUSE8_GEOMETRIES:
+        rec = recs[name]
+        r, parsed, fn, args = rec.staged()
+        try:
+            geom = pipeline._fuse8_geom
+            pipeline._fuse8_geom = lambda *a: (False, geom(*a)[1])
+            try:
+                gfn, gargs = DeviceBatchDecoder(r, DEVICE).pack(parsed,
+                                                                rec.chunk)
+            finally:
+                pipeline._fuse8_geom = geom
+            require(gfn.func is not _decode_fuse8,
+                    '%s: the generic route was not forced' % name)
+            arr = rec.arr[:len(parsed) * rec.chunk]
+            res = {'batch_chunks': len(parsed), 'chunk_samples': rec.chunk,
+                   'generic_plane_form': gfn.keywords['lay'].plane_form}
+            for route, f, a in (('fuse8', fn, args),
+                                ('generic', gfn, gargs)):
+                got, used = f(*a)
+                check_words_used(parsed, used)
+                require(np.array_equal(got.cpu().numpy().reshape(arr.shape),
+                                       arr),
+                        '%s: the %s route differs from the source'
+                        % (name, route))
+                ms = cuda_ms(lambda f=f, a=a: f(*a), REPS, inner=8)
+                res[route + '_ms'] = ms
+                res[route + '_gbps'] = arr.nbytes / 1e6 / ms
+            out[name] = res
+            log('i. staged decode %s, B=%d of %d samples: fused %.4f ms '
+                '(%.3f GB/s), generic %.4f ms (%.3f GB/s)%s'
+                % (name, len(parsed), rec.chunk, res['fuse8_ms'],
+                   res['fuse8_gbps'], res['generic_ms'], res['generic_gbps'],
+                   ', K4 plane form' if res['generic_plane_form'] else ''))
+        finally:
+            r.close()
+    return out
 
 
 def _nbytes(t):
@@ -3082,6 +3211,7 @@ def main():
         done('j bench')
         stagings = time_staged(recs, staged)
         del staged
+        fuse8_geometries = time_fuse8_geometries(recs)
         staged_encode = time_encode(encoded)
         del encoded, enc, x
         layers = {name: stage_breakdown(recs[name])
@@ -3121,6 +3251,7 @@ def main():
                             'storm': storm_summary, 'entry': entry_run,
                             'baseline_report': baseline,
                             'bounded_batches': bounded, 'staged': stagings,
+                            'fuse8_geometries': fuse8_geometries,
                             'layers_s': layers, 'compress_s': compress_s,
                             'staged_encode': staged_encode,
                             'encode_layers_s': enc_layers,

@@ -47,8 +47,7 @@ from .io_host import load_raw_data, pread_exact, default_compressed_paths
 from .ops.delta import diff_along_axis, cumsum_along_axis
 from .parallel import pipeline
 from .parallel.pipeline import (DeviceBatchEncoder, DeviceChunkCache,
-                                MIN_DEVICE_SUBBATCH, decompress_to_array,
-                                decompress_to_tensor)
+                                decompress_to_array, decompress_to_tensor)
 from .utils.misc import Bunch, clip, logger, progress
 
 
@@ -487,14 +486,11 @@ class Writer:
         payload).
 
         Adaptive writers split the batch into uniform-transform window
-        runs; each run encodes as its own device batch with the
-        window's transform and the bit5 stamp (byte-identical to the
-        host path's containers). Runs shorter than
-        ``MIN_DEVICE_SUBBATCH``, batches that ``supported()`` declines
-        and runs that ``encode_batch`` declines go to the host codec;
-        runs already encoded on the device are kept (the JAX package
-        re-encodes the whole batch on the host when a later run
-        declines: the same bytes, twice the work).
+        runs; each run encodes as its own device batch, however short,
+        with the window's transform and the bit5 stamp (byte-identical
+        to the host path's containers; the JAX package sends runs under
+        4 chunks to the host codec). Batches that ``supported()``
+        declines go to the host codec.
         """
         ids = list(ids)
         # supported() is transform-independent (dtype/geometry only):
@@ -512,21 +508,13 @@ class Writer:
                     runs.append((tr, [j]))
         else:
             runs = [(None, list(range(len(ids))))]
-        out, rest = {}, []
+        out = {}
         for tr, js in runs:
-            if tr is not None and len(js) < MIN_DEVICE_SUBBATCH:
-                rest.extend(ids[j] for j in js)
-                continue
             payloads = DeviceBatchEncoder(
                 self, transform=tr, device=self.device).encode_batch(
                     np.stack([np.asarray(chunks[j]) for j in js]))
-            if payloads is None:
-                rest.extend(ids[j] for j in js)
-                continue
             for j, p in zip(js, payloads):
                 out[ids[j]] = (chunks[j], p)
-        if rest:
-            out.update(self._host_chunks(rest))
         return out
 
     def compress_batch(self, first_chunk, last_chunk):

@@ -28,7 +28,7 @@ from .ops.device_delta import (cumsum_time, diff_time, zigzag_decode,
 from .ops.rans_decode import decode_groups
 from .ops.rans_encode import (encode_groups, left_align, pack_encoder_tables,
                               symbol_capacity)
-from .ops.tables import WINDOW_ROWS, pack_device_tables
+from .ops.tables import pack_device_tables
 from .parallel.mesh import chunk_mesh, on_device
 
 
@@ -65,13 +65,13 @@ def _example_groups(n_groups=2, seg=1024, seed=0):
 def _stage(states, words, freq_rows, counts, device):
     """K1's input tensors on ``device``, staged as
     :meth:`~.parallel.pipeline.DeviceBatchDecoder.pack` stages a group:
-    the word stream in rows of 128 lanes (with the pipeline's slack rows,
-    rounded up to 512 rows), octet and dense tables of
+    the word stream in rows of 128 lanes, no more rows than the longest
+    stream fills, octet and dense tables of
     :func:`~.ops.tables.pack_device_tables` per row. uint32 and uint16
     travel as int32 and int16 bits."""
     N, R = counts.shape
-    wr = -(-words.shape[1] // rans.LANES) + WINDOW_ROWS
-    staged = np.zeros((N, -(-wr // 512) * 512 * rans.LANES), np.uint16)
+    staged = np.zeros((N, -(-words.shape[1] // rans.LANES) * rans.LANES),
+                      np.uint16)
     staged[:, :words.shape[1]] = words
     octet = np.zeros((N, R, rans.LANES), np.int32)
     dense = np.zeros((N, R, 256), np.int32)

@@ -1,7 +1,7 @@
 """Host-side decode tables, re-housed as plain numpy.
 
 The JAX package builds these in ``mtscomp_tpu/ops/pallas_rans.py``
-(``pack_device_tables``, ``WINDOW_ROWS``), a module that imports Pallas
+(``pack_device_tables``), a module that imports Pallas
 when it loads; the port needs the identical arrays without JAX. The
 packed arrays are bit-identical to the JAX package's (a test holds the
 two against each other for every table of real containers).
@@ -9,15 +9,7 @@ two against each other for every table of real containers).
 
 import numpy as np
 
-from ..models.rans import GROUP_ROWS, SCALE_BITS
-
-
-#: Slack word rows after each group's stream: what one step of a 32-row
-#: group can span in the TPU kernel's word window (8 alignment rows, 1
-#: row of in-row offset, 32 rows of ranks, 1 boundary row). The port's
-#: kernel needs no slack; it keeps the rows so that its staged word
-#: buffers equal the JAX package's shape for shape.
-WINDOW_ROWS = GROUP_ROWS + 10
+from ..models.rans import SCALE_BITS
 
 
 def pack_device_tables(freqs):

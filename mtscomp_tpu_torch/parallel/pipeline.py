@@ -4,8 +4,9 @@ ported to PyTorch.
 Decode.
 
 A batch of B chunk containers is parsed on the host, staged as tensors
-(:meth:`DeviceBatchDecoder.pack`, the same arrays as the JAX package's
-``pack``), and decoded by eager calls into the port's kernels. K1
+(:meth:`DeviceBatchDecoder.pack`: the JAX package's arrays, with word
+buffers of the card's size), and decoded by eager calls into the port's
+kernels. K1
 (grouped rANS decode, ``ops/rans_decode.py``) writes each group's
 row-linear byte rows; then one of two routes, the JAX package's
 ``_build_decode_fn`` branches:
@@ -14,7 +15,8 @@ row-linear byte rows; then one of two routes, the JAX package's
   (or second: K5 follows), no spatial diff, channel-aligned segments and
   one rANS-coded low byte plane under a constant high byte. K1's rows ARE
   channels, and the fused finalize (K2/K3, ``ops/device_delta.py``) turns
-  them into the (B, T, C) samples.
+  them into the (B, T, C) samples. Unlike the JAX package, any segment
+  width, step count and ragged tail takes it (``_fuse8_geom``).
 - **generic**: everything else that ``supported()`` accepts (1-, 2- and
   4-byte integers and bitcast floats, rANS/CONST/RAW planes in any mix,
   C or F order, spatial diff, first- or second-order time diff, flags
@@ -48,9 +50,10 @@ planes are gathered into (N, 32, S*128) segment rows; K6 (grouped rANS
 encode, ``ops/rans_encode.py``) writes each group's states and
 right-anchored word stream; the streams are left-aligned and fetched
 once, and the containers assembled on the host, byte-identical to the
-host codec's. Chunks the device route leaves to the host codec (a dtype
-``supported()`` declines, runt sub-batches, layouts ``encode_batch``
-declines) are counted (``host_encoded_chunks``).
+host codec's. It takes 1-, 2- and 4-byte elements, every layout and
+table mode and mode-uniform sub-batches of any length; chunks of a
+dtype ``supported()`` declines go to the host codec and are counted
+(``host_encoded_chunks``).
 """
 
 import collections
@@ -86,7 +89,7 @@ from ..ops.device_hist import histogram256
 from ..ops.rans_decode import decode_groups, decode_groups_coarse
 from ..ops.rans_encode import (encode_groups, left_align,
                                pack_encoder_tables, symbol_capacity)
-from ..ops.tables import WINDOW_ROWS, pack_device_tables
+from ..ops.tables import pack_device_tables
 from ..utils.misc import logger
 from ..utils.trace import phase
 from .mesh import mesh_devices, on_device
@@ -96,8 +99,8 @@ from .mesh import mesh_devices, on_device
 host_fallback_chunks = 0
 
 #: Chunks the Writer's device route encoded on the host codec (the same
-#: bytes): batches ``DeviceBatchEncoder.supported()`` declines, runt
-#: sub-batches and layouts ``encode_batch`` declines.
+#: bytes): batches ``DeviceBatchEncoder.supported()`` declines (8-byte
+#: dtypes, a non-native byte order, single-sample chunks).
 host_encoded_chunks = 0
 
 #: Tensor dtype holding a coding dtype's bits, by item size.
@@ -272,25 +275,33 @@ def _timed(fn):
 
 
 def _fuse8_geom(modes, dtype, zigzag, order, do_time_diff, do_spatial_diff,
-                seg, tp, T, S, aligned, has_head):
+                seg, tp, S, aligned, has_head):
     """``(fuse8, k)``: whether a batch takes the fused u8 route, and its
-    channels per segment. The JAX package's predicate (its ``use_pallas``
-    is true here whenever a plane is rANS-coded)."""
+    channels per segment.
+
+    One rANS-coded low byte plane under a CONST high byte of 2-byte
+    F-order time-diff chunks without a spatial diff, whose segments are
+    whole rows of ``k`` channels (``seg_eff == seg``: K1's row of S * 128
+    symbols is then exactly k channel rows of ``tp``, so its output views
+    as the finalize's (B, channels, tp) block with no copy). The JAX
+    package also asks for a Pallas step block (a divisor of S in 8..128),
+    a 128-lane channel tile (k a multiple of 4) and tp >= T: K1 on the
+    card has no step blocks, the finalize takes any channel stride and
+    T <= tp + 1 samples (``FINALIZE_EDGE_CASES`` holds it on the card at
+    odd channel counts and at T = tp + 1).
+    """
     rans_planes = [p for p, m in enumerate(modes) if m == MODE_RANS]
     const_planes = [p for p, m in enumerate(modes) if m == MODE_CONST]
     raw_planes = [p for p, m in enumerate(modes) if m == MODE_RAW]
     k = (seg // tp) if aligned and tp else 0
     seg_eff = min(seg, S * LANES) if rans_planes else 0
-    spb_f = max((d for d in range(1, 129) if S % d == 0), default=1) \
-        if S else 1
     i16_kind = dtype in (np.dtype(np.int16), np.dtype(np.uint16))
     fuse8 = (bool(rans_planes) and aligned and has_head
              and rans_planes == [0] and not raw_planes
              and len(const_planes) == 1
              and i16_kind and zigzag
              and order == 'F' and do_time_diff and not do_spatial_diff
-             and (GROUP_ROWS * k) % 128 == 0
-             and seg_eff == seg and spb_f >= 8 and tp >= T)
+             and seg_eff == seg)
     return fuse8, k
 
 
@@ -559,7 +570,7 @@ def _to_tensors(states, words, lookup, dense_pk, counts, const_vals,
             put(heads, _BITS[heads.dtype.itemsize][1]))
 
 
-def args_from_jax_pack(raw_args, device):
+def args_from_jax_pack(raw_args, device, rows=None):
     """The port's decode tensors from the JAX package's staged batch.
 
     ``raw_args`` are the ten arrays ``mtscomp_tpu``'s
@@ -570,14 +581,18 @@ def args_from_jax_pack(raw_args, device):
     is present and the word buffer fits its 16384-row window) and every
     frequency table is 8-aligned, and coarse tables otherwise; the rule
     is read back from ``freqs`` and ``words`` (its
-    ``MTSCOMP_DEC_LOOKUP`` override is not). Lets a test decode the
-    identical staged batch in both packages.
+    ``MTSCOMP_DEC_LOOKUP`` override is not). ``rows`` keeps the first
+    ``rows`` rows of 128 words of each group's buffer (the port's
+    :meth:`DeviceBatchDecoder.pack` stages no slack rows): lets a test
+    decode the identical staged batch in both packages.
     """
     (states, words, freqs, counts, coarse_pk, dense_pk, _counts_b,
      const_vals, raw_vals, heads) = (np.array(a) for a in raw_args)
     N = states.shape[0]
     octet = (bool(counts.any()) and words.size // (N * LANES) <= 16384
              and not np.any(freqs & 7))
+    if rows is not None:
+        words = words.reshape(N, -1)[:, :rows * LANES]
     lookup = (coarse_pk[:, :, 0, :] if octet
               else coarse_pk.reshape(N, GROUP_ROWS, 256))
     return _to_tensors(states, words, lookup, dense_pk, counts, const_vals,
@@ -717,9 +732,13 @@ class DeviceBatchDecoder:
         (:meth:`decode_tensor` does). Staging once and calling ``fn``
         repeatedly amortizes the host-to-device copy.
 
-        The staged arrays are the JAX package's (its ``freqs`` and
-        ``counts_b`` aside, which the port's K1 does not read), octet rows
-        or coarse tables as its Pallas kernel would take them.
+        The staged arrays are the JAX package's where both take the same
+        route (its ``freqs`` and ``counts_b`` aside, which the port's K1
+        does not read; octet rows or coarse tables as its Pallas kernel
+        would take them), with each group's word buffer cut to the
+        longest stream's rows of 128 words (the JAX package adds slack
+        rows and buckets to 512). Layouts that only the port fuses stage
+        their ragged tail after the full groups.
 
         With ``mesh`` (:func:`~.mesh.chunk_mesh` of width n), returns
         ``(fn, shards)``: ``shards[s]`` holds the tensors of chunks
@@ -765,12 +784,14 @@ class DeviceBatchDecoder:
         tp = -(-Tc // LANES) * LANES if aligned else 0
         fuse8, k = _fuse8_geom(modes, self.dtype, first['zigzag'],
                                self.order, do_time_diff, do_spatial_diff,
-                               seg, tp, T, S, aligned, has_head)
+                               seg, tp, S, aligned, has_head)
 
         # Ragged-tail decision (fuse8 only): the last group of each chunk
         # holds only the leftover channels (C % k), one short segment or
         # M bit6 sub-rows. Packed after all full groups, it decodes as B
-        # short groups and feeds the finalize's second input.
+        # short groups and feeds the finalize's second channel block,
+        # which takes any number of channels (the JAX package's tail
+        # kernel bounds it to 32 channels behind at most 1024 rows).
         tail = None
         if fuse8 and G >= 2:
             tail_segs = first['groups'][-1]['segments']
@@ -781,10 +802,7 @@ class DeviceBatchDecoder:
             for _, s, n in tail_segs:
                 contiguous = contiguous and s == nxt
                 nxt = s + n
-            S_t = max((-(-n // LANES) for _, _, n in tail_segs), default=0)
-            if (0 < rem < k and contiguous and n_tail == rem * tp
-                    and S_t and 2 * S_t <= S and rem <= 32
-                    and (G - 1) * GROUP_ROWS * k + 128 <= 1024):
+            if 0 < rem < k and contiguous and n_tail == rem * tp:
                 tail = (rem, -(-rem // 8) * 8,
                         tuple(n for _, _, n in tail_segs))
         if tail_split > 1 and tail is None:
@@ -796,10 +814,10 @@ class DeviceBatchDecoder:
         for parsed in parsed_list:
             for g in parsed['groups']:
                 w_max = max(w_max, g['words'].size)
-        # Word buffers: the JAX package's row bucketing, so both stage
-        # identical arrays.
-        wr = -(-w_max // LANES) + WINDOW_ROWS
-        WR = -(-wr // 512) * 512
+        # Word buffers: each group's longest stream in rows of 128 words.
+        # K1 reads nothing past a group's region (reads there are 0), so
+        # no slack rows, and no bucketing: nothing compiles per shape.
+        WR = -(-w_max // LANES)
 
         # Shards: the mesh's width where the batch has rANS groups. The
         # group layout below is per shard, so each shard's slab holds
@@ -920,16 +938,16 @@ def _chunk_key(reader, idx, payload=None):
 #: Most decoded bytes one decode batch may hold when the configuration
 #: names no ``batch_chunks``: 1 GiB. A batch stages, per decoded byte, at
 #: most about six bytes on the device at once: the word streams (under 1,
-#: the file's ratio, plus the window rows of ``pack``), K1's symbol rows
-#: (1/2 with one coded byte plane, 1 with all), the decoded samples (1)
-#: and, on the routes outside the fused kernels, the plane combine, the
-#: inverse zigzag and one carried scan's copy (1 each). So a batch at the
-#: bound holds at most about 6 GiB of an 80 GB card (an estimate from the
-#: code; measured on an H100 with ``chip_smoke.py``'s bounded-batch phase,
-#: the fused route's peak was 1,566.9 MB for 739.2 MB decoded, 2.1 bytes
-#: a decoded byte), a 32-chunk batch of 1-s 385-channel int16 chunks
-#: (0.74 GB decoded) stays one batch, and a 30-min recording of such
-#: chunks decodes in 40 batches of 46.
+#: the file's ratio, each group's padded to its batch's longest), K1's
+#: symbol rows (1/2 with one coded byte plane, 1 with all), the decoded
+#: samples (1) and, on the routes outside the fused kernels, the plane
+#: combine, the inverse zigzag and one carried scan's copy (1 each). So a
+#: batch at the bound holds at most about 6 GiB of an 80 GB card (an
+#: estimate from the code; measured on an H100 with ``chip_smoke.py``'s
+#: bounded-batch phase, the fused route's peak was 1,566.9 MB for 739.2
+#: MB decoded, 2.1 bytes a decoded byte), a 32-chunk batch of 1-s
+#: 385-channel int16 chunks (0.74 GB decoded) stays one batch, and a
+#: 30-min recording of such chunks decodes in 40 batches of 46.
 DECODE_BATCH_BYTES = 1 << 30
 
 
@@ -1310,12 +1328,6 @@ def _build_transform_fn(B, T, C, dtype_str, order, do_time_diff,
     return transform
 
 
-# Mixed-mode encode batches split into mode-uniform sub-batches; runs
-# smaller than this take the host codec (byte-identical) instead, as in
-# the JAX package.
-MIN_DEVICE_SUBBATCH = 4
-
-
 def _gather_symbols(planes, rans_planes, segments, *, B, G, C, tcs, tp,
                     aligned, n_stream, seg, S, tsplit):
     """(B, P, n) byte planes -> (B*G, 32, S*128) uint8 segment rows: the
@@ -1393,10 +1405,13 @@ class DeviceBatchEncoder:
         self.profile = None
 
     def supported(self, n_samples):
-        """1- and 2-byte integers in native order, chunks of at least
-        two samples, fewer than 65536 channels (the JAX package's
-        rule)."""
-        return (self.dtype.kind in 'iu' and self.dtype.itemsize <= 2
+        """1-, 2- and 4-byte integers (bitcast floats included) in
+        native order, chunks of at least two samples (a head and a coded
+        row), fewer than 65536 channels (the header's head field). The
+        transform makes one byte plane a byte of the element, and K6
+        codes planes of any element width; the JAX package's encode
+        takes 1- and 2-byte elements only."""
+        return (self.dtype.kind in 'iu' and self.dtype.itemsize <= 4
                 and self.dtype.byteorder in '<=|'
                 and n_samples > 1
                 and self.writer.n_channels < 65536)
@@ -1411,19 +1426,10 @@ class DeviceBatchEncoder:
         self.profile[name] = self.profile.get(name, 0.0) + (t1 - t0)
         return t1
 
-    def _host_encode(self, chunk):
-        """One chunk (host ndarray) through the host codec."""
-        return self.codec.encode(
-            self.writer._transform_chunk(chunk, self.diff_order,
-                                         self.do_spatial_diff),
-            order=self.order, transform=self.stamp)
-
     def encode_batch(self, chunks, mesh=None):
         """chunks: (B, T, C) ndarray in the coding dtype, or a tensor on
         the device holding its bits (``_BITS``) -> list of container
-        payload bytes, or None for a layout the device route leaves to
-        the host codec (segment tables without channel-aligned
-        segments, as in the JAX package).
+        payload bytes.
 
         With ``mesh`` (:func:`~.mesh.chunk_mesh`), K6's group axis is
         sharded across the mesh's devices: the groups are padded to a
@@ -1433,7 +1439,6 @@ class DeviceBatchEncoder:
         transform and the plane decisions run on the encoder's device as
         without a mesh; the bytes are the same.
         """
-        global host_encoded_chunks
         devices = mesh_devices(mesh)
         t0 = time.perf_counter()
         B, T, C = chunks.shape
@@ -1466,28 +1471,37 @@ class DeviceBatchEncoder:
             n_stream = n_coded
         n_pad = n_stream - n_coded
         seg_mode = getattr(self.codec, 'table_mode', 'plane') == 'segment'
-        if seg_mode and not aligned:
-            return None    # host codec handles non-aligned clustering
 
-        # Per-channel histograms for segment-table clustering: the
-        # F-order plane stream is channel-major, so per-segment
-        # histograms are sums of per-channel ones (plus the per-channel
-        # zero pads) -- bit-identical to the host codec's bincounts.
-        ch_hists = None
+        # Per-segment histograms for segment-table clustering, equal to
+        # the host codec's bincounts of its coded stream. Channel-aligned:
+        # the F-order plane stream is channel-major, so a segment's
+        # histogram is the sum of its k channels' (plus their zero pads).
+        # Otherwise the stream is the plane itself (F or C order), cut
+        # into segments of ``seg`` symbols, the last one short.
+        seg_hists = None
         if seg_mode and n_stream > seg:
             with phase('encode.seghist'):
-                ch_hists = histogram256(planes_d.view(B * P * C, tcs)).view(
-                    B, P, C, 256).cpu().numpy()
-        n_segs = -(-n_stream // seg) if aligned else 0
+                if aligned:
+                    n_segs = -(-C // k)
+                    ch = torch.zeros((B, P, n_segs * k, 256),
+                                     dtype=torch.int64, device=x.device)
+                    ch[:, :, :C] = histogram256(
+                        planes_d.view(B * P * C, tcs)).view(B, P, C, 256)
+                    seg_hists = ch.view(B, P, n_segs, k, 256).sum(dim=3)
+                    n_ch = (C - k * torch.arange(n_segs, device=x.device)
+                            ).clamp(max=k)
+                    seg_hists[:, :, :, 0] += n_ch * (tp - tcs)
+                else:
+                    n_full = n_stream // seg
+                    flat = planes_d.view(B * P, n_stream)
+                    parts = [histogram256(flat[:, :n_full * seg].reshape(
+                        B * P * n_full, seg)).view(B, P, n_full, 256)]
+                    if n_stream > n_full * seg:
+                        parts.append(histogram256(
+                            flat[:, n_full * seg:]).view(B, P, 1, 256))
+                    seg_hists = torch.cat(parts, dim=2)
+                seg_hists = seg_hists.cpu().numpy()
         t0 = self._mark('transform', t0)
-
-        def _seg_hists(b, p):
-            out = np.empty((n_segs, 256), dtype=np.int64)
-            for s in range(n_segs):
-                a, z = s * k, min((s + 1) * k, C)
-                out[s] = ch_hists[b, p, a:z].sum(axis=0)
-                out[s, 0] += (z - a) * (tp - tcs)
-            return out
 
         # Host: tables + per-plane modes (uniform across the batch for
         # one device call; mixed batches split below). The decision
@@ -1497,8 +1511,8 @@ class DeviceBatchEncoder:
         plane_tables = {}
         for b in range(B):
             for p in range(P):
-                seg_fn = ((lambda b=b, p=p: _seg_hists(b, p))
-                          if ch_hists is not None else None)
+                seg_fn = ((lambda b=b, p=p: seg_hists[b, p])
+                          if seg_hists is not None else None)
                 mode, ptables, tidx = ans_mod.decide_plane(
                     hists[b, p], n_pad, n_stream, n_coded, seg,
                     'segment' if seg_mode else 'plane', seg_fn)
@@ -1508,21 +1522,14 @@ class DeviceBatchEncoder:
         if not (modes == modes[0]).all():
             # Plane modes are data-dependent per chunk (a quiet chunk
             # codes its high byte CONST, a busy one rANS): encode each
-            # mode-uniform sub-batch on the device (decide_plane is
-            # deterministic, so each passes the uniformity check on
-            # re-entry); sub-batches below MIN_DEVICE_SUBBATCH chunks go
-            # to the host codec (the same bytes), as in the JAX package.
+            # mode-uniform sub-batch on the device, however short
+            # (decide_plane is deterministic, so each passes the
+            # uniformity check on re-entry). The JAX package sends
+            # sub-batches under 4 chunks to the host codec, so as not to
+            # compile one more shape; nothing here compiles per shape.
             payloads = [None] * B
             for row in sorted({tuple(m) for m in modes.tolist()}):
                 ids = [b for b in range(B) if tuple(modes[b]) == row]
-                if len(ids) < MIN_DEVICE_SUBBATCH:
-                    host_encoded_chunks += len(ids)
-                    for b in ids:
-                        chunk = (chunks[b] if not torch.is_tensor(chunks)
-                                 else chunks[b].cpu().numpy().view(
-                                     self.dtype))
-                        payloads[b] = self._host_encode(chunk)
-                    continue
                 sub = self.encode_batch(
                     chunks[torch.tensor(ids, device=chunks.device)]
                     if torch.is_tensor(chunks)

@@ -9,8 +9,9 @@ tests.py:499-526, run on the machine that executes the hot path).
 
 Matrix axes (every cell decodes byte-exactly through
 :class:`~.parallel.pipeline.DeviceBatchDecoder` with the word audit on;
-cells with items of 2 bytes or less also encode on the device and
-require containers byte-identical to the host codec):
+cells with items of 4 bytes or less also encode on the device and
+require containers byte-identical to the host codec; the JAX storm
+encodes items of 2 bytes or less):
 
 - dtype: int8 / uint8 / int16 / uint16 / int32 / uint32, bitcast
   float16 and float32; int64 / uint64 / float64, which the device decode
@@ -69,7 +70,6 @@ from .models import rans
 from .ops import _build
 from .ops.rans_encode import encode_groups, symbol_capacity
 from .ops.tables import pack_device_tables
-from .parallel import pipeline
 from .parallel.pipeline import (DeviceBatchDecoder, DeviceBatchEncoder,
                                 DeviceChunkCache, _read_payload,
                                 check_words_used, decompress_to_array)
@@ -246,23 +246,18 @@ def device_decode_all(reader, arr, device):
 
 def device_encode(w, chunks, device):
     """Encode ``chunks`` through a :class:`DeviceBatchEncoder` of writer
-    ``w`` on ``device``; returns ``(payloads, encoder)``, ``payloads``
-    None where ``encode_batch`` leaves the layout to the host codec.
+    ``w`` on ``device``; returns ``(payloads, encoder)``.
 
-    The production mixed-mode guard (sub-batches below
-    ``MIN_DEVICE_SUBBATCH`` encode on the host) is pinned to 1, as the
-    JAX storm pins it: the storm's job is to run the device coder on
-    every mode row. So no chunk may reach the host codec, every
+    Every mode row of a batch encodes on the device, however few chunks
+    hold it (the JAX storm pins its host rule for short sub-batches to
+    1 for the same effect). So no chunk may reach the host codec, every
     container must equal the host codec's bytes, and on the card a batch
     that codes a rANS plane must launch K6.
     """
     enc = DeviceBatchEncoder(w, device=device)
     before = launch_counts()
-    with _patched({(pipeline, 'MIN_DEVICE_SUBBATCH'): 1}):
-        payloads = enc.encode_batch(chunks)
+    payloads = enc.encode_batch(chunks)
     after = launch_counts()
-    if payloads is None:
-        return None, enc
     if after['host_encoded_chunks'] != before['host_encoded_chunks']:
         raise AssertionError("%d chunks of the device encode went to the "
                              "host codec" % (after['host_encoded_chunks']
@@ -312,9 +307,6 @@ def device_encode_check(raw, arr, sr, nc, compress_kwargs, device):
         if not DeviceBatchEncoder(w, device=device).supported(csize):
             raise AssertionError("device encode declined the geometry")
         payloads, enc = device_encode(w, chunks, device)
-        if payloads is None:
-            raise AssertionError("device encode left the batch to the host "
-                                 "codec")
         return _encode_label(w, payloads, device), enc
     finally:
         w.close()
@@ -470,7 +462,7 @@ class Storm:
                             raise AssertionError("device window [%d:%d) "
                                                  "mismatch" % (a, b))
                     extra['windows'] = 'ok'
-                if encode and dt.itemsize <= 2:
+                if encode:
                     with _patched(patches):
                         # Full merged config (incl. cbase's pinned
                         # table mode), matching what compress() used.
@@ -764,22 +756,16 @@ class Storm:
                          mode=kw['ans_table_mode'],
                          aligned=kw['ans_channel_segments'],
                          order=kw['chunk_order'])
-            if dt.itemsize <= 2 and csz > 1:
-                w = Writer(algorithm='ans', quiet=True,
-                           device=str(self.device),
-                           **_writer_kwargs(self.cbase(**kw)))
-                try:
-                    w.open(raw, sample_rate=float(csz), n_channels=nc,
-                           dtype=dt.name)
-                    if DeviceBatchEncoder(w, device=self.device).supported(
-                            csz):
-                        chunk = np.stack([np.asarray(w.get_chunk(0))])
-                        payloads, _enc = device_encode(w, chunk, self.device)
-                        extra['encode'] = (
-                            'declined' if payloads is None
-                            else _encode_label(w, payloads, self.device))
-                finally:
-                    w.close()
+            w = Writer(algorithm='ans', quiet=True, device=str(self.device),
+                       **_writer_kwargs(self.cbase(**kw)))
+            try:
+                w.open(raw, sample_rate=float(csz), n_channels=nc,
+                       dtype=dt.name)
+                chunk = np.stack([np.asarray(w.get_chunk(0))])
+                payloads, _enc = device_encode(w, chunk, self.device)
+                extra['encode'] = _encode_label(w, payloads, self.device)
+            finally:
+                w.close()
             return extra
         return fn
 
@@ -793,8 +779,8 @@ class Storm:
         for dtype in ('int8', 'uint8', 'int16', 'uint16', 'int32', 'uint32'):
             run('dtype_%s' % dtype, 'aligned, plane tables, partial tail',
                 rt(dtype, expect_fixups='one', window=(dtype == 'int16')))
-        # Bitcast floats: float16 codes through the 2-byte path (device
-        # encode included), float32 through the 4-byte decode.
+        # Bitcast floats: float16 codes through the 2-byte path, float32
+        # through the 4-byte decode; both encode on the device.
         run('dtype_float16', 'bitcast float via the i16 kernels + device '
             'encode', rt('float16', expect_fixups='one'))
         run('dtype_float32', 'bitcast float via the int32 decode + windows',

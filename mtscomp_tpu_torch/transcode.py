@@ -77,7 +77,7 @@ class _Target:
         """Payloads of ``chunks`` (arrays in the coding dtype), in order:
         on the device, each run of equal-shape chunks as one batch,
         where the target is ans and has one; the host codec otherwise,
-        and for what the device route declines (the same bytes)."""
+        and for dtypes the device route declines (the same bytes)."""
         if self.device is None:
             return self._host_payloads(chunks)
         payloads, first = [], 0
@@ -88,12 +88,11 @@ class _Target:
                 last += 1
             run, first = chunks[first:last], last
             enc = pipeline.DeviceBatchEncoder(self, device=self.device)
-            got = enc.encode_batch(np.stack(run)) \
-                if enc.supported(run[0].shape[0]) else None
-            if got is None:
+            if enc.supported(run[0].shape[0]):
+                payloads += enc.encode_batch(np.stack(run))
+            else:
                 pipeline.host_encoded_chunks += len(run)
-                got = self._host_payloads(run)
-            payloads += got
+                payloads += self._host_payloads(run)
         return payloads
 
 

@@ -8,9 +8,10 @@ plane tables), the port's ``encode_batch`` on the CPU twins returns the
 same container bytes as the JAX package's ``encode_batch`` (Pallas in
 interpret mode) and as the host codec's ``encode``. ``compress`` with
 ``device='cpu'`` writes the JAX package's file byte for byte, and the
-port decodes it; batches the route leaves to the host codec (a dtype
-``supported()`` declines, runt sub-batches, C order under segment
-tables) are counted in ``host_encoded_chunks``.
+port decodes it. Batches the JAX package leaves to its host codec (4-byte
+elements, runt sub-batches, C order under segment tables) encode on the
+port's device route with the same bytes and no chunk counted in
+``host_encoded_chunks``.
 """
 
 import numpy as np
@@ -185,8 +186,9 @@ def test_staged_tensor_input_and_layer_profile(tmp_path_):
 
 def test_mixed_modes_split_with_runts_on_the_host(tmp_path_):
     """A batch whose plane modes differ between chunks: the four quiet
-    chunks (high byte CONST) encode as one device sub-batch, the one
-    busy chunk (both planes rANS) is a runt for the host codec."""
+    chunks (high byte CONST) encode as one device sub-batch, and so does
+    the one busy chunk (both planes rANS), the runt that the JAX package
+    sends to its host codec: the same bytes, no chunk on the host."""
     quiet = _walk(11, step=2.0, n=4 * T)
     busy = _walk(12, spikes=SPIKES, n=T) + quiet[-1]
     arr = _as(np.concatenate([quiet, busy]), 'int16')
@@ -195,7 +197,7 @@ def test_mixed_modes_split_with_runts_on_the_host(tmp_path_):
         chunks = _chunks(pw, 5)
         mt.reset_launch_counts()
         got = tp.DeviceBatchEncoder(pw, device='cpu').encode_batch(chunks)
-        assert mt.launch_counts()['host_encoded_chunks'] == 1
+        assert mt.launch_counts()['host_encoded_chunks'] == 0
         assert got == jpl.DeviceBatchEncoder(jw).encode_batch(chunks) \
             == _host(pw, chunks)
         modes = [tuple(pw.codec.parse(p)['modes']) for p in got]
@@ -208,8 +210,9 @@ def test_mixed_modes_split_with_runts_on_the_host(tmp_path_):
 @pytest.mark.parametrize('adapt', [2, 3])
 def test_adaptive_windows_keep_device_runs(tmp_path_, adapt):
     """transform_adapt: each window encodes with its own transform and
-    the bit5 stamp; runs of a batch shorter than MIN_DEVICE_SUBBATCH go
-    to the host codec. The file equals the JAX package's."""
+    the bit5 stamp, every run on the device however short (the JAX
+    package sends runs and mode sub-batches under 4 chunks to its host
+    codec). The file equals the JAX package's."""
     walk = _walk(13, n=8 * T)
     # A slow oscillation: its second diff is far smaller than its first,
     # so the windows' probes move from order 1 to order 2.
@@ -239,24 +242,9 @@ def test_adaptive_windows_keep_device_runs(tmp_path_, adapt):
         r.close()
     transforms = [p['transform'] for p in parsed]
     assert len(set(transforms)) >= 2            # the probe changed its mind
-    # One batch of 8 chunks: runs of equal transforms shorter than
-    # MIN_DEVICE_SUBBATCH go to the host codec, and so do the runt
-    # mode-uniform sub-batches of the longer runs.
-    runs = [[0]]
-    for i in range(1, len(parsed)):
-        if transforms[i] == transforms[i - 1]:
-            runs[-1].append(i)
-        else:
-            runs.append([i])
-    want = 0
-    for run in runs:
-        if len(run) < tp.MIN_DEVICE_SUBBATCH:
-            want += len(run)
-            continue
-        modes = [tuple(parsed[i]['modes']) for i in run]
-        want += sum(n for n in map(modes.count, set(modes))
-                    if n < tp.MIN_DEVICE_SUBBATCH)
-    assert n_host == want
+    # One batch of 8 chunks: its runs of equal transforms, and their
+    # mode-uniform sub-batches, all encode on the device.
+    assert n_host == 0
 
 
 def test_adaptive_windows_of_four_stay_on_the_device(tmp_path_):
@@ -280,9 +268,10 @@ def test_adaptive_windows_of_four_stay_on_the_device(tmp_path_):
 
 @pytest.mark.parametrize('case', ['int32', 'c_order_segment_tables'])
 def test_declined_batches_go_to_the_host_codec(tmp_path_, case):
-    """int32 (``supported()`` declines) and C order under segment tables
-    (``encode_batch`` declines, as in the JAX package): every chunk on
-    the host codec, counted, and the same bytes."""
+    """int32 (the JAX package's ``supported()`` declines it) and C order
+    under segment tables (its ``encode_batch`` declines it): the JAX
+    package encodes them on its host codec, the port on its device route
+    with no chunk on the host codec, and both write the same bytes."""
     if case == 'int32':
         arr, opts = (_walk(15, spikes=SPIKES) * 1001).astype(np.int32), ORDER1
     else:
@@ -291,13 +280,15 @@ def test_declined_batches_go_to_the_host_codec(tmp_path_, case):
     pw, jw = _writers(tmp_path_, arr, **dict(S11, **opts))
     try:
         enc = tp.DeviceBatchEncoder(pw, device='cpu')
+        assert enc.supported(T)
         if case == 'int32':
-            assert not enc.supported(T)
             assert not jpl.DeviceBatchEncoder(jw).supported(T)
         else:
-            assert enc.encode_batch(_chunks(pw)) is None
             assert jpl.DeviceBatchEncoder(jw).encode_batch(
                 _chunks(jw)) is None
+        mt.reset_launch_counts()
+        assert enc.encode_batch(_chunks(pw)) == _host(pw, _chunks(pw))
+        assert mt.launch_counts()['host_encoded_chunks'] == 0
     finally:
         pw.close()
         jw.close()
@@ -307,7 +298,7 @@ def test_declined_batches_go_to_the_host_codec(tmp_path_, case):
     mt.reset_launch_counts()
     mt.compress(raw, tmp_path_ / 'p.cbin', tmp_path_ / 'p.ch', device='cpu',
                 **kw)
-    assert mt.launch_counts()['host_encoded_chunks'] == N_CHUNKS + 1
+    assert mt.launch_counts()['host_encoded_chunks'] == 0
     mtscomp_tpu.compress(raw, tmp_path_ / 'j.cbin', tmp_path_ / 'j.ch',
                          device='none', **kw)
     assert ((tmp_path_ / 'p.cbin').read_bytes()

@@ -18,7 +18,6 @@ import torch
 jax = pytest.importorskip('jax')
 
 from mtscomp_tpu_torch import entry  # noqa: E402
-from mtscomp_tpu_torch.ops.tables import WINDOW_ROWS  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -53,13 +52,16 @@ def test_entry_equals_the_jitted_jax_step(jax_entry):
     assert out.dtype == torch.int16 and want.dtype == np.int16
     assert out.shape == want.shape == (2, 128, 128)
     assert np.array_equal(out.numpy(), want)
-    # Staged as the pipeline stages a group: word rows of 128 lanes with
-    # the slack rows, rounded up to 512 rows.
+    # Staged as the pipeline stages a group: word rows of 128 lanes, as
+    # many as the longest stream fills (the JAX entry adds no rows).
     states, words, octet, dense, counts = args
     assert all(t.device.type == 'cpu' for t in args)
     rows = words.shape[1] // 128
-    assert words.shape[1] % 128 == 0 and rows % 512 == 0
-    assert rows >= -(-jargs[1].shape[1] // 128) + WINDOW_ROWS
+    assert words.shape[1] % 128 == 0
+    assert rows == -(-jargs[1].shape[1] // 128)
+    assert np.array_equal(words.numpy()[:, :jargs[1].shape[1]].view(
+        np.uint16), np.asarray(jargs[1]))
+    assert not words.numpy()[:, jargs[1].shape[1]:].any()
     assert octet.shape == (2, 32, 128) and dense.shape == (2, 32, 256)
 
 

@@ -146,7 +146,7 @@ def _check_layout(name, parsed, fn):
 
 @pytest.mark.parametrize('name', sorted(GEOMS))
 def test_pack_matches_jax_pack_generic(tmp_path_, monkeypatch, name):
-    _arr, r, T = _file(tmp_path_, monkeypatch, name)
+    arr, r, T = _file(tmp_path_, monkeypatch, name)
     try:
         parsed = _parsed(r, T)
         dec = tp.DeviceBatchDecoder(r, 'cpu')
@@ -156,10 +156,23 @@ def test_pack_matches_jax_pack_generic(tmp_path_, monkeypatch, name):
         jdec = JaxDecoder(r)
         _jfn, jargs = jdec.pack(parsed, T)
         assert dec.last_tail == jdec.last_tail
-        want = tp.args_from_jax_pack(jargs, 'cpu')
+        # Each group's words in the longest stream's rows: the JAX
+        # package's further (slack and bucket) rows are all zero.
+        rows = -(-max(g['words'].size for p in parsed for g in p['groups'])
+                 // 128)
+        assert args[1].shape[1] == rows * 128
+        assert not tp.args_from_jax_pack(jargs, 'cpu')[1][:, rows * 128:].any()
+        want = tp.args_from_jax_pack(jargs, 'cpu', rows=rows)
         assert len(args) == len(want) == 8
         for a, b in zip(args, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
+        out, used = fn(*args)
+        tp.check_words_used(parsed, used)
+        code = np.dtype(getattr(r, 'code_dtype', r.dtype))
+        got = out.numpy().view(code)
+        assert got.tobytes() == JaxDecoder(r).decode_batch(parsed, T).tobytes()
+        src = arr[:len(parsed) * T].view(code)
+        assert np.array_equal(got.reshape(src.shape), src)
     finally:
         r.close()
 

@@ -99,24 +99,36 @@ def test_chunk_mesh_matches_jax(n):
 def test_pack_shards_equal_jax_pack(tmp_path, monkeypatch, name, n):
     """Each shard's staged tensors are the JAX ``pack(mesh=)`` arrays of
     that shard: groups chunk-major in the shard, the ragged tail after
-    the shard's full groups."""
+    the shard's full groups, each group's words in the batch's longest
+    stream's rows (the JAX package's further rows all zero); the shards
+    decode to the source."""
     monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     arr, T, port, jaxr, parsed = _open(tmp_path, name)
     mesh, jmesh = _meshes(n)
     try:
         jdec = jp.DeviceBatchDecoder(jaxr)
         _fn, jargs = jdec.pack(parsed, T, mesh=jmesh)
-        want = tp.args_from_jax_pack(jargs, 'cpu')
+        rows = -(-max(g['words'].size for p in parsed for g in p['groups'])
+                 // 128)
+        assert not tp.args_from_jax_pack(jargs, 'cpu')[1][:, rows * 128:].any()
+        want = tp.args_from_jax_pack(jargs, 'cpu', rows=rows)
         dec = tp.DeviceBatchDecoder(port, 'cpu')
-        _fn, shards = dec.pack(parsed, T, mesh=mesh)
+        fn, shards = dec.pack(parsed, T, mesh=mesh)
         assert dec.last_tail == jdec.last_tail
         if name == 'tail129':
             assert dec.last_tail == (1, 8, (128,) * 8)
         assert len(shards) == n
+        outs, used = [], []
         for s, shard in enumerate(shards):
             for got, full in zip(shard, want):
-                rows = full.shape[0] // n
-                assert torch.equal(got, full[s * rows:(s + 1) * rows])
+                part = full.shape[0] // n
+                assert torch.equal(got, full[s * part:(s + 1) * part])
+            out, u = fn(*shard)
+            outs.append(out)
+            used.append(u)
+        tp.check_words_used(parsed, torch.cat(used))
+        got = torch.cat(outs).numpy().view(arr.dtype)
+        assert np.array_equal(got.reshape(arr.shape), arr)
     finally:
         port.close()
         jaxr.close()

@@ -73,9 +73,20 @@ GEOMS = ['ragged129', 'uniform128', 'wide40_int16', 'wide40_uint16']
 TAILS = {'ragged129': (1, 8, (128,) * 8)}
 
 
+def word_rows(parsed):
+    """Rows of 128 words the port stages for each group: the longest
+    stream's, no slack."""
+    return -(-max(g['words'].size for p in parsed for g in p['groups'])
+             // 128)
+
+
 @pytest.mark.parametrize('name', GEOMS)
 def test_pack_matches_jax_pack(tmp_path_, monkeypatch, name):
-    _arr, r, T = _file(tmp_path_, name, monkeypatch)
+    """The port stages the JAX package's arrays, states, tables and
+    counts in full, each group's words in the longest stream's rows (the
+    JAX package's further rows all zero), and the staged batch decodes
+    to the source and to the JAX package's bytes."""
+    arr, r, T = _file(tmp_path_, name, monkeypatch)
     try:
         parsed = _parsed(r)
         dec = tp.DeviceBatchDecoder(r, 'cpu')
@@ -84,11 +95,19 @@ def test_pack_matches_jax_pack(tmp_path_, monkeypatch, name):
         jdec = JaxDecoder(r)
         _jfn, jargs = jdec.pack(parsed, T)
         assert dec.last_tail == jdec.last_tail == TAILS.get(name)
-        want = tp.args_from_jax_pack(jargs, 'cpu')
+        rows = word_rows(parsed)
+        assert args[1].shape[1] == rows * 128
+        assert not tp.args_from_jax_pack(jargs, 'cpu')[1][:, rows * 128:].any()
+        want = tp.args_from_jax_pack(jargs, 'cpu', rows=rows)
         assert len(args) == len(want) == 8
         for a, b in zip(args, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
         assert fn.keywords['tail'] == dec.last_tail
+        out, used = fn(*args)
+        tp.check_words_used(parsed, used)
+        got = out.numpy().view(arr.dtype)
+        assert got.tobytes() == JaxDecoder(r).decode_batch(parsed, T).tobytes()
+        assert np.array_equal(got.reshape(arr.shape), arr)
     finally:
         r.close()
 

@@ -202,7 +202,6 @@ def test_pack_device_tables_foreign_tables(seed):
     assert (mine[3] is None) == (ref[3] is None)
     if ref[3] is not None:
         assert np.array_equal(mine[3], ref[3])
-    assert tables.WINDOW_ROWS == pallas_rans.WINDOW_ROWS
 
 
 def test_decode_groups_rejects_bad_inputs():
@@ -237,6 +236,18 @@ def test_args_from_jax_pack_dtypes(tmp_path_, monkeypatch):
         assert np.array_equal(
             args[1].numpy().view(np.uint16),
             np.asarray(jargs[1]).reshape(args[1].shape))
+        # rows= keeps each group's first rows of 128 words: the port's
+        # pack stages exactly those, the same bits.
+        rows = -(-max(g['words'].size for p in parsed for g in p['groups'])
+                 // 128)
+        trimmed = args_from_jax_pack(jargs, 'cpu', rows=rows)
+        assert trimmed[1].shape == (args[1].shape[0], rows * 128)
+        assert torch.equal(trimmed[1], args[1][:, :rows * 128])
+        assert not args[1][:, rows * 128:].any()
+        for a, b in zip(trimmed[2:], args[2:]):
+            assert torch.equal(a, b)
+        staged = DeviceBatchDecoder(r, 'cpu').pack(parsed, T)[1]
+        assert all(torch.equal(a, b) for a, b in zip(staged, trimmed))
     finally:
         r.close()
 

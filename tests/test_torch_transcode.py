@@ -376,8 +376,8 @@ TRANSCODES_ON_A_DEVICE = {
     'c_order': ('ans', {'chunk_order': 'C'}, 'int16', 'ans',
                 {'ans_table_mode': 'plane'}, True, True),
     'float16': ('ans', {}, 'float16', 'ans', {}, True, True),
-    # 4-byte codes decode on a device; its encode declines them.
-    'float32': ('ans', {}, 'float32', 'ans', {}, True, False),
+    # 4-byte codes decode and encode on a device.
+    'float32': ('ans', {}, 'float32', 'ans', {}, True, True),
     'uint8': ('zlib', {}, 'uint8', 'ans', {}, False, True),
 }
 
@@ -438,8 +438,7 @@ def test_transcode_on_a_device_writes_the_host_route_s_bytes(
     assert device_calls['decode'] == ([3, 1] if decodes else [])
     assert counts['host_fallback_chunks'] == 0
     assert device_calls['encode'] == ([3, 1] if encodes else [])
-    declined = algorithm == 'ans' and not encodes
-    assert counts['host_encoded_chunks'] == (4 if declined else 0)
+    assert counts['host_encoded_chunks'] == 0
     r = decompress(tmp_path_ / 'd.cbin', device='cpu', quiet=True)
     try:
         assert r.to_array().tobytes() == arr.tobytes()

@@ -36,13 +36,20 @@ d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks; the
      count with no divisor in 8..128, tp = T - 1), another writer's
      segments of 5 channels, and 1025 channels (a bit6 tail behind 8
      full groups);
+   - the 8-byte items the JAX package leaves to its host codec
+     (``WIDE``), 2 s each at 385 channels, values past 2**32: int64 (the
+     spiky walk x 1001 around 3 * 2**40), float64 under a second-order
+     diff (the walk x 1.5, bitcast), C-order uint64 around 2**63, and an
+     int64 file one sample longer than its chunk (a last chunk of one
+     sample, stored without a head);
 c. hold every kernel form against its plain PyTorch twin on the card,
    at the shapes the decode of those files gives it (byte equality;
    ``FUSE8_GEOMETRIES`` included),
    K6 on the encode's B=8 batches of both 32-s files; hold K4's plane
    form against its twin and against the plane combine + element form
    (or the finalize) on batches with two coded planes, a CONST and a RAW
-   plane; run every form of K4 and K5 on the scan edge shapes
+   plane; run every form of K4 and K5 (int64 included) on the scan edge
+   shapes
    (``SCAN_EDGE_CASES``: lengths around the time segments, channel
    counts around the tiles, strided and misaligned inputs, short and
    head-extended outputs) and the finalize, K2 and K3, on its own
@@ -65,8 +72,9 @@ e-g. decode path by path, with every launch count set to 0 just before
    ``.to_array()`` and ``.tofile()`` (and ``.to_tensor()`` for the two
    32-s files), check each byte for byte against its source, check
    that every kernel form of the path was launched (the path
-   ``fuse8_geometries``: K1 octet, K2 and K3 and no generic form) and
-   that no chunk went to the host codec;
+   ``fuse8_geometries``: K1 octet, K2 and K3 and no generic form; the
+   path ``wide``: K1, K4's int64 forms and K5's, and no scan narrower
+   than 64 bits) and that no chunk went to the host codec;
 h. drop one word, then half the words, of one group's stream and
    expect the word audit's IOError, on both routes;
 w. random-access windows on the card, path by path (``WINDOW_PATHS``:
@@ -101,8 +109,10 @@ k. encode path by path (the two 32-s files, then the branch files),
    ``.cbin`` and ``.ch`` are byte-identical to the host route's, that K6
    launched and that no chunk went to the host codec (the path
    ``encode_opened``: int32, bitcast float32, C order under segment
-   tables, a mode sub-batch of one chunk, window runs of 2), and decode
-   each device-encoded file through the port to its source;
+   tables, a mode sub-batch of one chunk, window runs of 2; the path
+   ``encode_wide``: the 8-byte files, 8 byte planes, a chunk of one
+   sample), and decode each device-encoded file through the port to its
+   source;
 p. the measured ``'auto'`` route: ``link_profile()`` and
    ``host_profile()`` measured afresh, the CPU count, and the first-call
    cost (a fresh child process's first device decode, kernels built);
@@ -134,15 +144,17 @@ t. the tools on the card, each command through ``python -m
 u. the hardware storm (``mtscomp_tpu_torch.storm.main`` in this
    process, counts set to 0 just before and read just after): the JAX
    storm's full grid at its geometry (385 channels, chunks of 4,000
-   samples, 2.5 chunks: every dtype with bitcast floats and the declined
-   8-byte ones, plane and segment tables, aligned and non-aligned
+   samples, 2.5 chunks: every dtype with bitcast floats, the 8-byte ones
+   through the int64 scans, plane and segment tables, aligned and
+   non-aligned
    layouts, foreign two-fixup tables, C order, spatial diff, no time
    diff, order 2, the joint probe, the ragged-tail split, adaptive
    windows, K6's word region, a corrupted file) and 16 random cells of
    seed 0, each byte-exact against the source and the host codec with
    its seconds and launches by kernel form logged; every cell must
-   pass (so the wide-dtype cells launch nothing and the corruption
-   surfaces as IOError) and every form of ``STORM_FORMS`` launch;
+   pass (so the wide-dtype cells leave no chunk to the host codec and
+   launch no scan narrower than 64 bits, and the corruption surfaces as
+   IOError) and every form of ``STORM_FORMS`` launch;
 v. the entry points of ``entry.py`` (counts set to 0 just before and read
    just after):
    ``entry()``'s decode step (K1, K5) on the card equal to the same step
@@ -183,8 +195,10 @@ i. time the staged decodes (the batch staged on the card once, CUDA
    decode of ONE chunk (B=1, what a window stages) with K1 and K3 or
    K4's plane form alone; windows of 1 s, 0.1 s and 30 samples, uncached
    and cached, on the device route and on the host codec
-   (``device='none'``), host clock with a synchronize, median of 8; and
-   ``to_array()`` of the 32-s files on both routes in turns.
+   (``device='none'``), host clock with a synchronize, median of 8;
+   ``to_array()`` of the 32-s files on both routes in turns; and each of
+   ``WIDE`` staged on the card and on the host codec, and its
+   ``to_array()`` on both routes in turns.
 
 The order of the run: a, b, d, c, e-h, w, m, F3, s, k, p, t, u, v, r, j, i.
 Then come the host-clock seconds of each phase. The last five lines are
@@ -282,6 +296,14 @@ KERNELS = {
         'scan_transposed_i32_inclusive',
         'mtscomp_tpu_torch/csrc/scan_transposed.cu',
         'mtscomp_tpu/ops/device_delta.py:140'),
+    'scan_transposed int64, head-seeded (K4)': (
+        'scan_transposed_i64_seeded',
+        'mtscomp_tpu_torch/csrc/scan_transposed.cu',
+        'mtscomp_tpu/ops/device_delta.py:140'),
+    'scan_transposed int64, inclusive (K4)': (
+        'scan_transposed_i64_inclusive',
+        'mtscomp_tpu_torch/csrc/scan_transposed.cu',
+        'mtscomp_tpu/ops/device_delta.py:140'),
     'scan_transposed planes int16, head-seeded (K4)': (
         'scan_planes_i16_seeded',
         'mtscomp_tpu_torch/csrc/scan_transposed.cu',
@@ -296,6 +318,9 @@ KERNELS = {
     'cumsum_time int32 (K5)': (
         'cumsum_time_i32', 'mtscomp_tpu_torch/csrc/cumsum_time.cu',
         'mtscomp_tpu/ops/device_delta.py:89'),
+    'cumsum_time int64 (K5)': (
+        'cumsum_time_i64', 'mtscomp_tpu_torch/csrc/cumsum_time.cu',
+        'mtscomp_tpu/ops/device_delta.py:89'),
     'rans_encode_groups (K6)': (
         'rans_encode', 'mtscomp_tpu_torch/csrc/rans_encode.cu',
         'mtscomp_tpu/ops/pallas_rans_enc.py:86'),
@@ -303,7 +328,9 @@ KERNELS = {
 
 #: ptxas entry-name fragments (all of them in the mangled name) -> the
 #: kernel it compiles. K4 and K5 are three passes: segment totals, their
-#: prefixes (one kernel, compiled into both sources), the seeded scan.
+#: prefixes (one kernel an accumulator width, compiled into both sources),
+#: the seeded scan. int64 mangles as ``l``, the 64-bit accumulator as
+#: ``y``.
 #: The finalize is K4's kernels behind their finalize load stage: K2 with
 #: one channel block, K3 with a tail block.
 PTXAS_NAMES = (
@@ -312,19 +339,24 @@ PTXAS_NAMES = (
     (('rans_decode_groups_kernelILi2E',), 'K1 coarse 2'),
     (('scan_transposed_totals_kernel', 'ElemLoadIsE'), 'K4 i16 totals'),
     (('scan_transposed_totals_kernel', 'ElemLoadIiE'), 'K4 i32 totals'),
+    (('scan_transposed_totals_kernel', 'ElemLoadIlE'), 'K4 i64 totals'),
     (('scan_transposed_totals_kernel', 'PlaneLoad'), 'K4 planes totals'),
     (('scan_transposed_totals_kernel', 'FinalizeLoadILb0E'), 'K2 totals'),
     (('scan_transposed_totals_kernel', 'FinalizeLoadILb1E'), 'K3 totals'),
     (('scan_transposed_kernel', 'ElemLoadIsE'), 'K4 i16 scan'),
     (('scan_transposed_kernel', 'ElemLoadIiE'), 'K4 i32 scan'),
+    (('scan_transposed_kernel', 'ElemLoadIlE'), 'K4 i64 scan'),
     (('scan_transposed_kernel', 'PlaneLoad'), 'K4 planes scan'),
     (('scan_transposed_kernel', 'FinalizeLoadILb0E'), 'K2 scan'),
     (('scan_transposed_kernel', 'FinalizeLoadILb1E'), 'K3 scan'),
     (('cumsum_time_totals_kernelIsE',), 'K5 i16 totals'),
     (('cumsum_time_totals_kernelIiE',), 'K5 i32 totals'),
+    (('cumsum_time_totals_kernelIlE',), 'K5 i64 totals'),
     (('cumsum_time_scan_kernelIsE',), 'K5 i16 scan'),
     (('cumsum_time_scan_kernelIiE',), 'K5 i32 scan'),
-    (('seg_prefix_kernel',), 'K4/K5 prefix'),
+    (('cumsum_time_scan_kernelIlE',), 'K5 i64 scan'),
+    (('seg_prefix_kernelIjE',), 'K4/K5 prefix'),
+    (('seg_prefix_kernelIyE',), 'K4/K5 i64 prefix'),
     (('rans_encode_groups_kernel',), 'K6'))
 
 ORDER1 = {'time_diff_order': 1, 'do_spatial_diff': False}
@@ -481,7 +513,35 @@ RECORDINGS = {
     'adaptive_runts': ('walk_then_slow', SHORT_SECONDS, 385, 'int16', 23,
                        {'transform_adapt': 3, 'n_threads': BATCH}, None,
                        None),
+    # 8-byte items, which the JAX package decodes and encodes on its host
+    # codec (JAX without x64 has no int64 tensor): values past 2**32, K1
+    # then K4's int64 form (the spiky int64 walk), K4 i64 and K5 i64
+    # (order 2 of the walk x 1.5 as float64, bitcast), the torch layout
+    # and K5 i64 (C-order uint64 around 2**63); all three encode on the
+    # card (8 byte planes, K6).
+    'int64': ('spiky', BRANCH_SECONDS, 385, 'int64', 24, ORDER1, None,
+              ('generic', None, False, 0)),
+    'float64_order2': ('walk', BRANCH_SECONDS, 385, 'float64', 25,
+                       {'time_diff_order': 2, 'do_spatial_diff': False},
+                       None, ('generic', None, False, 0)),
+    'uint64_c_order': ('walk', BRANCH_SECONDS, 385, 'uint64', 26,
+                       dict(ORDER1, chunk_order='C'), None,
+                       ('generic', None, False, 0)),
+    # A recording one sample longer than its chunk: the last chunk, of
+    # one sample, is stored without a head, so its decode runs K4's
+    # inclusive int64 form (and its device encode a batch of one row).
+    'int64_last_sample': ('spiky', BRANCH_SECONDS, 385, 'int64', 27,
+                          dict(ORDER1, chunk_duration=(BRANCH_SECONDS * SR
+                                                       - 1) / SR),
+                          None, ('generic', None, False, 0)),
 }
+#: The recordings of 8-byte items (decoded, encoded and timed as paths of
+#: their own).
+WIDE = ('int64', 'float64_order2', 'uint64_c_order', 'int64_last_sample')
+#: Every scan form narrower than 64 bits: a wide path must launch none.
+NARROW_SCANS = ('finalize_u8', 'finalize_u8_tail', 'scan_planes_i16_seeded',
+                'scan_transposed_i16_seeded', 'scan_transposed_i32_seeded',
+                'cumsum_time_i16', 'cumsum_time_i32')
 #: The layouts only the port fuses (``RECORDINGS``' note), decoded and
 #: timed on both routes as a path of their own.
 FUSE8_GEOMETRIES = ('fuse8_odd_steps', 'fuse8_k5', 'fuse8_1025ch')
@@ -500,7 +560,7 @@ PATHS = {
                 ('scan_transposed_i16_seeded',)),
     'branches': (tuple(name for name, r in RECORDINGS.items()
                        if r[1] == BRANCH_SECONDS
-                       and name not in FUSE8_GEOMETRIES)
+                       and name not in FUSE8_GEOMETRIES + WIDE)
                  + ('mixed_modes', 'adaptive'),
                  ('rans_decode_octet', 'rans_decode_coarse_1fixup',
                   'rans_decode_coarse_2fixups', 'finalize_u8_tail',
@@ -513,6 +573,9 @@ PATHS = {
                          ('scan_planes_i16_seeded',
                           'scan_transposed_i16_seeded',
                           'scan_transposed_i32_seeded', 'cumsum_time_i16')),
+    'wide': (WIDE, ('rans_decode_octet', 'scan_transposed_i64_seeded',
+                    'scan_transposed_i64_inclusive', 'cumsum_time_i64'),
+             NARROW_SCANS),
 }
 
 #: Encode paths, each driven with the counts set to 0 just before it:
@@ -532,13 +595,15 @@ ENCODE_PATHS = {
                         ('rans_encode',)),
     'encode_opened': (('int32', 'float32_order2', 'c_order_segment',
                        'mixed_runt', 'adaptive_runts'), ('rans_encode',)),
+    'encode_wide': (WIDE, ('rans_encode',)),
 }
 ENCODED = {name for names, _forms in ENCODE_PATHS.values() for name in names}
 
-#: The forms some path launches. The others, K4's inclusive scans, run
-#: only for chunks without a stored head, which this codec's writer
-#: never makes (it stores one for every 2-D chunk): they are held against
-#: their twins and timed, and reported apart from the path kernels.
+#: The forms some path launches. The others, K4's inclusive scans of 2-
+#: and 4-byte elements, run only for chunks without a stored head, which
+#: this codec's writer makes only for a chunk of one sample (the path
+#: ``wide`` has one, of int64): they are held against their twins and
+#: timed, and reported apart from the path kernels.
 ON_PATH = {form for paths in (PATHS, ENCODE_PATHS)
            for _names, forms, *_not in paths.values() for form in forms}
 
@@ -558,6 +623,9 @@ WINDOW_PATHS = {
                           'scan_transposed_i16_seeded',
                           'scan_transposed_i32_seeded', 'cumsum_time_i16',
                           'cumsum_time_i32')),
+    'windows_wide': (WIDE[:3], ('rans_decode_octet',
+                                'scan_transposed_i64_seeded',
+                                'cumsum_time_i64')),
 }
 #: Decoded chunks a window reader keeps on the card (phase w).
 WINDOW_CACHE = 4
@@ -762,9 +830,9 @@ def edge_k6_inputs(rows, freqs, counts, steps, n_words, region_end):
 def scan_edge_arrays(name):
     """The seeded inputs of one of ``SCAN_EDGE_CASES``, as numpy arrays
     over the whole integer range: ``elems`` and ``head`` by width (16,
-    32), the (B, C, T') byte planes ``lo`` and ``hi`` and the per-chunk
-    constants ``lo_const`` and ``hi_const``. The port's CPU tests import
-    it from here."""
+    32, 64), the (B, C, T') byte planes ``lo`` and ``hi`` and the
+    per-chunk constants ``lo_const`` and ``hi_const``. The port's CPU
+    tests import it from here."""
     B, C, T, _variant = SCAN_EDGE_CASES[name]
     rng = np.random.default_rng(200 + list(SCAN_EDGE_CASES).index(name))
     out = {}
@@ -780,6 +848,10 @@ def scan_edge_arrays(name):
                        ('lo_const', (B,)), ('hi_const', (B,))):
         out[key] = rng.integers(0, 255, size=shape, endpoint=True,
                                 dtype=np.int64).astype(np.uint8)
+    # Drawn last, so that the 16- and 32-bit inputs stay what they were.
+    for key, shape in (('elems64', (B, C, T)), ('head64', (B, C))):
+        out[key] = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64
+                                ).view(np.int64)
     return out
 
 
@@ -816,7 +888,7 @@ def scan_edge_calls(name, device):
     _B, _C, T, variant = SCAN_EDGE_CASES[name]
     a = scan_edge_arrays(name)
     calls = []
-    for bits in (16, 32):
+    for bits in (16, 32, 64):
         elems = edge_tensor(a['elems%d' % bits], variant, device)
         head = torch.from_numpy(a['head%d' % bits]).to(device)
         time_major = edge_tensor(np.ascontiguousarray(
@@ -888,12 +960,20 @@ def finalize_edge_call(name, device):
 def to_dtype(walk, dtype):
     """Integer samples in ``dtype``, wrapping like the codec's modular
     arithmetic; int32 is scaled x1001 (wide values, all four planes in
-    play), float32 by 0.25 (bitcast to int32 by the writer)."""
+    play), float32 by 0.25 (bitcast to int32 by the writer); int64 is
+    scaled x1001 around 3 * 2**40, uint64 lies around 2**63 and float64
+    is scaled by 1.5 (bitcast to int64): values past 2**32."""
     w = walk.astype(np.int64)
     if dtype == 'float32':
         return (walk * 0.25).astype(np.float32)
     if dtype == 'int32':
         return (w * 1001).astype(np.int32)
+    if dtype == 'int64':
+        return w * 1001 + (np.int64(3) << 40)
+    if dtype == 'uint64':
+        return w.astype(np.uint64) + (np.uint64(1) << np.uint64(63))
+    if dtype == 'float64':
+        return walk * 1.5
     bits = np.dtype(dtype).itemsize * 8
     u = (w % (1 << bits)).astype('uint%d' % bits)
     return u.view(dtype)
@@ -1170,7 +1250,8 @@ def check_kernels(recs):
         return compare(kernel, twin, args, kwargs)[1]
 
     for name in ('int16_385ch', 'int16_384ch', 'spiky_int16_385ch', 'int32',
-                 'foreign_1fixup', 'foreign_2fixups', 'order2_generic',
+                 'int64', 'float64_order2', 'foreign_1fixup',
+                 'foreign_2fixups', 'order2_generic',
                  'raw_low_plane') + FUSE8_GEOMETRIES:
         T = recs[name].chunk
         r, parsed, fn, args = recs[name].staged()
@@ -1201,7 +1282,7 @@ def check_kernels(recs):
         else:
             lay = kw['lay']
             elems = generic_elems(syms, const_vals, raw_vals, lay)
-            width = 'int32' if lay.itemsize == 4 else 'int16'
+            width = {4: 'int32', 8: 'int64'}.get(lay.itemsize, 'int16')
             ct = elems.view(lay.B, lay.C, lay.Tc)
             out = record('scan_transposed %s, head-seeded (K4)' % width,
                          dd.cumsum_time_transposed,
@@ -1362,8 +1443,8 @@ def check_scan_edge_cases():
     log('c. %d scan edge shapes (T\' 1 to 131 and C 1 to 1025 around the '
         'segments and tiles, 40000 channels, channel slices, bases off the '
         '16-byte grid, short and head-extended outputs): %d calls of K4 '
-        '(element and plane forms) and K5 equal their twins'
-        % (len(SCAN_EDGE_CASES), n))
+        '(element form at int16, int32 and int64, plane form) and K5 '
+        '(int16, int32, int64) equal their twins' % (len(SCAN_EDGE_CASES), n))
 
 
 def check_finalize_edge_cases():
@@ -1565,7 +1646,10 @@ def decode_through_reader(rec, with_tensor=False):
         if with_tensor:
             t = r.to_tensor()
             require(t.device.type == DEVICE, 'to_tensor left the card')
-            require(np.array_equal(t.cpu().numpy(), rec.arr),
+            # A uint64 file gives a torch.uint64 view: compared as bits.
+            require(t.dtype == pipeline._torch_dtype(rec.arr.dtype)
+                    and t.cpu().view(pipeline._BITS[t.element_size()][0])
+                    .numpy().tobytes() == rec.arr.tobytes(),
                     '%s: to_tensor() differs from the source' % rec.name)
             del t
         log('e. %s: to_array %.3f s, tofile %.3f s (host clock, %d chunks)'
@@ -1583,7 +1667,8 @@ def drive_paths(recs):
         mt.reset_launch_counts()
         for name in names:
             end_to_end[name] = decode_through_reader(
-                recs[name], with_tensor=RECORDINGS[name][1] == SECONDS)
+                recs[name],
+                with_tensor=RECORDINGS[name][1] == SECONDS or name in WIDE)
         torch.cuda.synchronize()
         counts = mt.launch_counts()
         counts_by_path[path] = counts
@@ -2430,7 +2515,8 @@ STORM_GRID = 27
 STORM_FORMS = ('rans_decode_octet', 'rans_decode_coarse_2fixups',
                'finalize_u8', 'finalize_u8_tail', 'scan_planes_i16_seeded',
                'scan_transposed_i16_seeded', 'scan_transposed_i32_seeded',
-               'cumsum_time_i16', 'cumsum_time_i32', 'rans_encode')
+               'scan_transposed_i64_seeded', 'cumsum_time_i16',
+               'cumsum_time_i32', 'rans_encode')
 
 
 def run_storm(workdir):
@@ -2438,8 +2524,9 @@ def run_storm(workdir):
     card, the full grid and ``STORM_RANDOM`` random cells of seed 0, the
     report in the work directory; every cell must pass (the storm itself
     fails a decode batch without its K1 launch, a device encode of a
-    rANS plane without K6, a wide-dtype cell with any launch, and a
-    corrupted file read without an IOError).
+    rANS plane without K6, a wide-dtype cell with a chunk on the host
+    codec, a scan narrower than 64 bits or none of 64, and a corrupted
+    file read without an IOError).
     Returns the storm's summary with each cell's seconds and launches."""
     base = workdir / 'storm' / 'GPU_STORM'
     rc = storm.main(['--random', str(STORM_RANDOM), '--seed', '0',
@@ -2689,12 +2776,12 @@ def time_windows(recs):
     return out
 
 
-def time_routes(recs):
-    """Phase i: ``to_array()`` of the 32-s files on the device route and
-    on the host codec in turns (device, host, host, device), host
-    clock."""
+def time_routes(recs, names=('int16_385ch', 'spiky_int16_385ch')):
+    """Phase i: ``to_array()`` of the 32-s files (or ``names``) on the
+    device route and on the host codec in turns (device, host, host,
+    device), host clock."""
     out = {}
-    for name in ('int16_385ch', 'spiky_int16_385ch'):
+    for name in names:
         rec, times = recs[name], {'device_s': [], 'host_s': []}
         for route in ('device', 'host', 'host', 'device'):
             r = rec.reader(device=DEVICE if route == 'device' else 'none')
@@ -2712,6 +2799,46 @@ def time_routes(recs):
         out[name] = times
         log('i. %s to_array(): device route %s s, host codec %s s (host '
             'clock, in turns)' % (name, times['device_s'], times['host_s']))
+    return out
+
+
+def time_wide(recs):
+    """Phase i, the 8-byte recordings (``WIDE``): the staged decode of
+    each one's batch on the card (K1 and the int64 scans; CUDA events,
+    median of ``REPS`` x 8) and of the same chunks on the host codec, the
+    route they took before the card had int64 scans and the JAX package's
+    (its C++ worker pool; host clock, median of ``REPS``), both
+    byte-exact; then ``to_array()`` on both routes in turns."""
+    out = {}
+    for name in WIDE:
+        rec = recs[name]
+        r, parsed, fn, args = rec.staged()
+        try:
+            ids = list(range(len(parsed)))
+            want = rec.arr[:len(parsed) * rec.chunk].tobytes()
+            got, used = fn(*args)
+            check_words_used(parsed, used)
+            require(got.cpu().numpy().tobytes() == want,
+                    '%s: the staged decode differs from the source' % name)
+            host = r._decompress_chunks_batch(ids)
+            require(b''.join(host[i].tobytes() for i in ids) == want,
+                    '%s: the host codec\'s decode differs from the source'
+                    % name)
+            del got, host
+            card = cuda_ms(lambda: fn(*args), REPS, inner=8)
+            on_host = host_ms(lambda: r._decompress_chunks_batch(ids))
+        finally:
+            r.close()
+        out[name] = {'batch_chunks': len(parsed), 'chunk_samples': rec.chunk,
+                     'staged_card_ms': card, 'staged_host_ms': on_host,
+                     'card_gbps': len(want) / 1e6 / card,
+                     'host_gbps': len(want) / 1e6 / on_host}
+        log('i. staged decode %s, B=%d: %.4f ms on the card (%.3f GB/s), '
+            '%.3f ms on the host codec (%.3f GB/s)'
+            % (name, len(parsed), card, len(want) / 1e6 / card, on_host,
+               len(want) / 1e6 / on_host))
+    for name, times in time_routes(recs, WIDE).items():
+        out[name]['to_array_s'] = times
     return out
 
 
@@ -3002,9 +3129,12 @@ def time_kernels(calls, counts_by_path):
 
 
 #: Phase i, the scans alone beside their staged B=8 calls: K5 at B=2, the
-#: batch its paths launch, and every int16 form and the finalize at B=32
-#: (a whole 32-s file in one batch); (kernel form, chunks).
+#: batch its paths launch, K4's int64 form at B=2 (the wide files' batch),
+#: and every int16 form and the finalize at B=32 (a whole 32-s file in one
+#: batch); (kernel form, chunks).
 SCAN_SHAPES = (('cumsum_time int16 (K5)', 2), ('cumsum_time int32 (K5)', 2),
+               ('cumsum_time int64 (K5)', 2),
+               ('scan_transposed int64, head-seeded (K4)', 2),
                ('cumsum_time int16 (K5)', 32),
                ('scan_transposed int16, head-seeded (K4)', 32),
                ('scan_transposed planes int16, head-seeded (K4)', 32),
@@ -3062,7 +3192,8 @@ def time_scan_shapes():
     out = []
     for name, B in SCAN_SHAPES:
         key = KERNELS[name][0]
-        dtype = torch.int32 if 'i32' in key else torch.int16
+        dtype = (torch.int64 if 'i64' in key else
+                 torch.int32 if 'i32' in key else torch.int16)
         if key.startswith('cumsum_time'):
             kernel, twin = dd.cumsum_time, dd.cumsum_time_ref
             args, kwargs = (rand((B, SR, 385), dtype),), {}
@@ -3122,14 +3253,14 @@ def main():
     smem = {form: lib.mts_rans_decode_smem_bytes(fixups) for fixups, form in
             enumerate(('K1 octet', 'K1 coarse 1', 'K1 coarse 2'))}
     smem['K6'] = lib.mts_rans_encode_smem_bytes()
-    for width, size in (('i16', 2), ('i32', 4)):       # at 385 channels
+    for width, size in (('i16', 2), ('i32', 4), ('i64', 8)):   # 385 ch
         smem['K4 %s scan' % width] = lib.mts_scan_transposed_smem_bytes(
-            385, dd.scan_transposed_geometry(385, size)[1])
+            385, dd.scan_transposed_geometry(385, size)[1], size)
         smem['K5 ' + width] = lib.mts_cumsum_time_smem_bytes(
             385, *dd.cumsum_time_geometry(385, size), size)
     # The finalize runs K4's int16 scan: K2 at 384 channels, K3 at 385.
     smem['K2 scan, 384 ch'] = lib.mts_scan_transposed_smem_bytes(
-        384, dd.scan_transposed_geometry(384, 2)[1])
+        384, dd.scan_transposed_geometry(384, 2)[1], 2)
     smem['K3 scan, 385 ch'] = smem['K4 i16 scan']
     log('b. dynamic shared memory a block (bytes): %s' % json.dumps(smem))
     # The host codec's C++ runtime builds at first use: before any timing.
@@ -3226,6 +3357,7 @@ def main():
         single_chunk = time_single_chunk(recs)
         windows_ms = time_windows(recs)
         routes_s = time_routes(recs)
+        wide = time_wide(recs)
         auto['against_routes'] = auto_against_routes(
             auto, compress_s, routes_s, windows_ms)
         done('i timings, windows and routes')
@@ -3252,6 +3384,7 @@ def main():
                             'baseline_report': baseline,
                             'bounded_batches': bounded, 'staged': stagings,
                             'fuse8_geometries': fuse8_geometries,
+                            'wide': wide,
                             'layers_s': layers, 'compress_s': compress_s,
                             'staged_encode': staged_encode,
                             'encode_layers_s': enc_layers,

@@ -96,14 +96,13 @@ DEV_ENCODE_RATE_CAP = 0.3e9
 HOST_POOL_SCALING_CORES = 8
 
 
-def _encodes_on_device(n_bytes, code_itemsize, device):
+def _encodes_on_device(n_bytes, device):
     """The 'auto' encode decision past its first two gates (an ans file,
-    'auto' with a GPU): 8-byte dtypes and recordings under
-    AUTO_DEVICE_MIN_BYTES to the host before any probe, then the card
-    where its upload-bound encode outruns the host pool. compress()
-    reads from host memory, so the link bounds the card's route too."""
-    if code_itemsize > 4:
-        return False
+    'auto' with a GPU): recordings under AUTO_DEVICE_MIN_BYTES to the
+    host before any probe, then the card where its upload-bound encode
+    outruns the host pool. compress() reads from host memory, so the
+    link bounds the card's route too. Every dtype takes the same rule:
+    ``n_bytes`` already weighs it by its item size."""
     if n_bytes < AUTO_DEVICE_MIN_BYTES:
         return False
     _lat, bw = pipeline.link_profile(device=device)
@@ -461,7 +460,7 @@ class Writer:
         (:func:`~.parallel.pipeline.host_profile`) over the host pool's
         cores: compress() reads from host memory, so the card's route is
         bound by its upload and, today, by its host side
-        (``DEV_ENCODE_RATE_CAP``). 8-byte dtypes and recordings under
+        (``DEV_ENCODE_RATE_CAP``). Recordings under
         ``AUTO_DEVICE_MIN_BYTES`` go to the host before any probe.
         """
         if self.algorithm != 'ans' or self.device is None:
@@ -470,7 +469,7 @@ class Writer:
             return True
         return _encodes_on_device(
             self.n_samples * self.n_channels * self.dtype.itemsize,
-            self.code_dtype.itemsize, self.device)
+            self.device)
 
     def _host_chunks(self, ids):
         """Host-codec encodes of chunks ``ids`` that the device route
@@ -1097,18 +1096,16 @@ class Reader:
         (:func:`~.parallel.pipeline.host_profile` over its cores), and
         a window when one sync, the window's fetch and the card's work
         on its chunks (``DEV_DECODE_KERNEL_RATE``) cost less than one
-        core decoding those chunks. 8-byte dtypes (which the device
-        decode declines) and recordings under ``AUTO_DEVICE_MIN_BYTES``
-        go to the host before any CUDA call or probe. The choice is made
-        here, before anything is staged: an error of the device decode
-        propagates.
+        core decoding those chunks. Recordings under
+        ``AUTO_DEVICE_MIN_BYTES`` go to the host before any CUDA call or
+        probe; every dtype takes the same rule, its bytes weighed by its
+        item size. The choice is made here, before anything is staged:
+        an error of the device decode propagates.
         """
         if self.algorithm != 'ans' or self.device is None:
             return False
         if self.config.device != 'auto':
             return True
-        if self.code_dtype.itemsize > 4:
-            return False
         itemsize = self.dtype.itemsize
         if (self.n_samples * self.n_channels * itemsize
                 < AUTO_DEVICE_MIN_BYTES):
@@ -1132,8 +1129,8 @@ class Reader:
     def _device_window(self, i0, i1):
         """Random-access window via the device chunk cache; None for the
         host path: a file that does not decode on a device, or a chunk
-        the batched decode declines before staging it (8-byte dtypes, a
-        foreign byte order). An error of the device decode propagates."""
+        the batched decode declines before staging it (a foreign byte
+        order). An error of the device decode propagates."""
         if not self._use_device(window=(i0, i1)):
             return None
         if self._dev_cache is None:

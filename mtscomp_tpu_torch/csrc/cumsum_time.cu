@@ -2,11 +2,14 @@
 //
 // Replaces the Pallas TPU kernel mtscomp_tpu/ops/device_delta.py::
 // _cumsum_kernel (entry cumsum_time_pallas, dispatched by cumsum_time):
-//   out[b, t, c] = sum_{i <= t} in[b, i, c]   modulo 2^16 or 2^32,
-// for int16 and int32 elements. The decode runs it after the samples
+//   out[b, t, c] = sum_{i <= t} in[b, i, c]   modulo 2^16, 2^32 or 2^64,
+// for int16, int32 and int64 elements (the TPU kernel takes int16 and
+// int32; JAX without x64 has no int64 tensor, so 8-byte dtypes decoded on
+// the JAX package's host codec). The decode runs it after the samples
 // are laid out time-major: the second pass of a second-order time diff,
 // C-order chunks, spatially differenced chunks and 1-byte dtypes (widened
-// to int16 by the caller).
+// to int16 by the caller). The 8-byte form differs from the others only
+// in its accumulator (scan_common.cuh): 64-bit totals and prefixes.
 //
 // The TPU computed each (256 t, 128 c) tile's prefix with byte-split
 // matmuls and carried the sums across a sequential grid axis. Here blocks
@@ -119,7 +122,7 @@ __device__ __forceinline__ T* tile_in_smem(uint4* smem, const T* g,
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 cumsum_time_totals_kernel(const T* __restrict__ in,
-                          uint32_t* __restrict__ totals, int T_len, int C,
+                          acc_t<T>* __restrict__ totals, int T_len, int C,
                           int n_steps, int c_tile, int n_seg, int n_ct,
                           int wide) {
   extern __shared__ uint4 smem[];
@@ -129,7 +132,7 @@ cumsum_time_totals_kernel(const T* __restrict__ in,
   copy_tile<true>(s, g, t, C, wide);
   __syncthreads();
   for (int c = threadIdx.x; c < t.cw; c += blockDim.x) {
-    uint32_t sum = 0;
+    acc_t<T> sum = 0;
 #pragma unroll 8
     for (int r = 0; r < t.rows; ++r) sum += widen(s[r * t.cw + c]);
     totals[(static_cast<size_t>(t.b) * n_seg + t.seg) * C + t.c0 + c] = sum;
@@ -141,7 +144,7 @@ cumsum_time_totals_kernel(const T* __restrict__ in,
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 cumsum_time_scan_kernel(const T* __restrict__ in, T* __restrict__ out,
-                        const uint32_t* __restrict__ prefix, int T_len, int C,
+                        const acc_t<T>* __restrict__ prefix, int T_len, int C,
                         int n_steps, int c_tile, int n_seg, int n_ct,
                         int wide) {
   extern __shared__ uint4 smem[];
@@ -151,14 +154,14 @@ cumsum_time_scan_kernel(const T* __restrict__ in, T* __restrict__ out,
   copy_tile<true>(s, g, t, C, wide);
   __syncthreads();
   for (int c = threadIdx.x; c < t.cw; c += blockDim.x) {
-    uint32_t run = 0;
+    acc_t<T> run = 0;
     if (prefix != nullptr) {
       run = prefix[(static_cast<size_t>(t.b) * n_seg + t.seg) * C + t.c0 + c];
     }
     T* col = s + c;
     int r = 0;
     for (; r + 8 <= t.rows; r += 8) {
-      uint32_t v[8];
+      acc_t<T> v[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = widen(col[(r + j) * t.cw]);
 #pragma unroll
@@ -209,7 +212,7 @@ cudaError_t launch(const void* in_v, void* out_v, void* scratch, int n_batch,
   e = cudaFuncSetAttribute(cumsum_time_scan_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  uint32_t* totals = static_cast<uint32_t*>(scratch);
+  acc_t<T>* totals = static_cast<acc_t<T>*>(scratch);
   if (n_seg > 1) {
     cumsum_time_totals_kernel<T><<<static_cast<unsigned>(blocks), threads,
                                    smem, stream>>>(
@@ -228,11 +231,12 @@ cudaError_t launch(const void* in_v, void* out_v, void* scratch, int n_batch,
 
 }  // namespace
 
-// Contiguous (B, T, C) in and out (no overlap); elem_bytes 2 (int16) or 4
-// (int32). Time is cut into segments of n_steps and channels into tiles of
-// c_tile (>= C: no tiling); n_steps * min(c_tile, C) elements + 16 bytes
-// must fit a block's shared memory. scratch: (B, ceil(T / n_steps), C)
-// uint32, needed when T > n_steps.
+// Contiguous (B, T, C) in and out (no overlap); elem_bytes 2 (int16), 4
+// (int32) or 8 (int64). Time is cut into segments of n_steps and channels
+// into tiles of c_tile (>= C: no tiling); n_steps * min(c_tile, C)
+// elements + 16 bytes must fit a block's shared memory. scratch: (B,
+// ceil(T / n_steps), C) uint32 (uint64 for 8-byte elements), needed when
+// T > n_steps.
 extern "C" int mts_cumsum_time(int device, const void* in, void* out,
                                void* scratch, int n_batch, int T_len, int C,
                                int n_steps, int c_tile, int elem_bytes,
@@ -245,6 +249,9 @@ extern "C" int mts_cumsum_time(int device, const void* in, void* out,
                         st);
   } else if (elem_bytes == 4) {
     e = launch<int32_t>(in, out, scratch, n_batch, T_len, C, n_steps, c_tile,
+                        st);
+  } else if (elem_bytes == 8) {
+    e = launch<int64_t>(in, out, scratch, n_batch, T_len, C, n_steps, c_tile,
                         st);
   } else {
     e = cudaErrorInvalidValue;

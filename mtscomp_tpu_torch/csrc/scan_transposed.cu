@@ -5,17 +5,20 @@
 // _cumsum_t_kernel (K4, entry cumsum_time_transposed), _cumsum_t8_kernel
 // (K2, entry cumsum_time_transposed_u8) and _cumsum_t8_tail_kernel (K3,
 // entry cumsum_time_transposed_u8_tail). Input: (B, C, T_in)
-// int16 or int32 elements, one row per channel (an F-order chunk's
+// int16, int32 or int64 elements, one row per channel (an F-order chunk's
 // diffs); output: the (B, T, C) time-integrated samples,
 //   inclusive:  out[b, t, c] = sum_{i <= t} in[b, c, i]
 //   exclusive:  out[b, t, c] = head[b, c] + sum_{i < t} in[b, c, i]
-// modulo 2^16 or 2^32 (the element width). The exclusive form seeded by
+// modulo 2^16, 2^32 or 2^64 (the element width). The exclusive form seeded by
 // the verbatim first samples puts the head at t = 0 with no concatenation
 // pass. The output is written at its final shape for any T and C: no
 // 128-padding of time or channels, no trim pass.
 //
 // Three load stages feed the same kernel bodies:
-//   element form  reads the elements themselves;
+//   element form  reads the elements themselves: int16, int32 and, where
+//                 the TPU kernel had no form (JAX without x64 has no int64
+//                 tensor), int64, summed in 64-bit accumulators
+//                 (scan_common.cuh) in tile rows of 17 8-byte words;
 //   plane form    (2-byte elements) reads the element's two byte planes,
 //                 each a u8 (B, C, T_in) tensor with free batch and
 //                 channel strides (K1's rows or a RAW plane, viewed in
@@ -41,14 +44,16 @@
 // and carried the sums across a sequential grid axis. Here blocks run in
 // no order and integer adds wrap natively, so time is split across blocks
 // instead of carried (scan_common.cuh): a block owns (chunk, time segment
-// of 128 bytes a channel: 64 int16 or 32 int32 steps, tile of c_tile
-// channels).
+// of 128 bytes a channel: 64 int16, 32 int32 or 16 int64 steps, tile of
+// c_tile channels).
 //   pass A  a warp per channel row sums the segment's elements (lanes
 //           along time, a shuffle reduction) into the scratch totals;
 //   pass B  seg_prefix_kernel: exclusive prefixes over the segments;
 //   pass C  warps load channel rows (lanes along time: coalesced) into a
 //           shared (channel, time) tile whose rows are an odd number of
-//           words long (33); then thread = channel walks its row, seeded with
+//           words long (33 4-byte words; 17 8-byte words for int64, so
+//           that every element keeps its 8-byte alignment); then thread =
+//           channel walks its row, seeded with
 //           head + prefix, and stores each step straight to the output:
 //           a warp's store is 32 neighbouring channels of one time step,
 //           the block's a run of c_tile channels (>= 128 bytes).
@@ -73,26 +78,38 @@ constexpr int kSegBytes = 128;            // a channel row's bytes a segment
 // row) is free of bank conflicts.
 constexpr int kRowWords = kSegBytes / 4 + 1;
 
-// Time steps a segment: 64 of int16, 32 of int32.
+// Time steps a segment: 64 of int16, 32 of int32, 16 of int64.
 template <typename T>
 constexpr int kSteps = kSegBytes / static_cast<int>(sizeof(T));
+// A tile row in elements: 33 words of 4 bytes for 2- and 4-byte elements,
+// 17 words of 8 bytes for 8-byte ones (a row of 33 4-byte words would put
+// every other row's 8-byte elements off their alignment). Odd either way:
+// the channel walk is free of bank conflicts.
+template <typename T>
+constexpr int kRowElems = sizeof(T) == 8
+                              ? kSteps<T> + 1
+                              : kRowWords * 4 / static_cast<int>(sizeof(T));
+
 constexpr int kItemsAhead = 4;            // 16-step loads a thread issues
 
 // Load stage of the element form: elements (B, C, T_in), time stride 1.
 template <typename T>
 struct ElemLoad {
+  using Acc = acc_t<T>;
+
   const T* in;
   long long bstride, cstride;
 
-  // No 16-step loads: its rows start anywhere on the 2- or 4-byte grid.
+  // No 16-step loads: its rows start anywhere on the element grid.
   static constexpr bool kVector = false;
   static constexpr int kSegSteps = kSteps<T>;
   // Channel rows whose loads a warp issues before it uses any (measured
-  // on an H100 at 385 channels: int16 is fastest at 8, int32 at 16).
+  // on an H100 at 385 channels: int16 is fastest at 8; int32 at 16; int64
+  // at 16, against 8 and 32).
   static constexpr int kRowsAhead = sizeof(T) == 2 ? 8 : 16;
 
   __device__ __forceinline__ void bind(int b) { in += b * bstride; }
-  __device__ __forceinline__ uint32_t operator()(int c, int t) const {
+  __device__ __forceinline__ Acc operator()(int c, int t) const {
     return widen(in[c * cstride + t]);
   }
 };
@@ -110,6 +127,7 @@ struct Plane {
 // thread loads 16 steps of a plane at once: one byte a lane keeps too few
 // bytes in flight to fill the memory pipe.
 struct PlaneLoad {
+  using Acc = uint32_t;
   static constexpr bool kVector = true;
   static constexpr int kSegSteps = kSteps<int16_t>;
   static constexpr int kRowsAhead = 8;     // for rows off the 16-byte grid
@@ -176,6 +194,7 @@ struct Rows {
 // the 16-byte grid (K1's rows are, and a freshly gathered tail block).
 template <bool kTail>
 struct FinalizeLoad {
+  using Acc = uint32_t;
   static constexpr bool kVector = true;
   static constexpr int kSegSteps = kSteps<int16_t>;
   static constexpr int kRowsAhead = 8;     // for rows off the 16-byte grid
@@ -248,12 +267,13 @@ __device__ __forceinline__ Tile block_tile(int C, int n_steps, int c_tile,
 // time so that their loads are issued before any is used.
 template <typename Load>
 __device__ __forceinline__ void row_totals(const Load& load, const Tile& t,
-                                           int n_read, uint32_t* dst) {
+                                           int n_read,
+                                           typename Load::Acc* dst) {
   constexpr int kAhead = Load::kRowsAhead;
   const int lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
   for (int r0 = threadIdx.x >> 5; r0 < t.rows; r0 += kAhead * n_warps) {
-    uint32_t sum[kAhead];
+    typename Load::Acc sum[kAhead];
 #pragma unroll
     for (int j = 0; j < kAhead; ++j) sum[j] = 0;
     for (int k = lane; k < n_read; k += 32) {
@@ -266,7 +286,7 @@ __device__ __forceinline__ void row_totals(const Load& load, const Tile& t,
 #pragma unroll
     for (int j = 0; j < kAhead; ++j) {
       const int r = r0 + j * n_warps;
-      uint32_t v = sum[j];
+      typename Load::Acc v = sum[j];
 #pragma unroll
       for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
       if (lane == 0 && r < t.rows) dst[r] = v;
@@ -321,14 +341,15 @@ __device__ __forceinline__ void vector_totals(const Load& load, const Tile& t,
 // Pass A: totals[b, seg, c] = sum of the segment's elements of channel c.
 template <typename Load>
 __global__ void __launch_bounds__(kMaxThreads)
-scan_transposed_totals_kernel(Load load, uint32_t* __restrict__ totals,
+scan_transposed_totals_kernel(Load load,
+                              typename Load::Acc* __restrict__ totals,
                               int C, int t_in, int c_tile, int n_seg,
                               int n_ct, int vec) {
   constexpr int n_steps = Load::kSegSteps;
   const Tile t = block_tile(C, n_steps, c_tile, n_seg, n_ct);
   load.bind(t.b);
   const int n_read = min(n_steps, t_in - t.t0);
-  uint32_t* dst =
+  typename Load::Acc* dst =
       totals + (static_cast<size_t>(t.b) * n_seg + t.seg) * C + t.c0;
   if constexpr (Load::kVector) {
     if (vec) {
@@ -344,13 +365,13 @@ scan_transposed_totals_kernel(Load load, uint32_t* __restrict__ totals,
 template <typename T, typename Load>
 __device__ __forceinline__ void row_fill(const Load& load, const Tile& t,
                                          int n_read, int n_out, T* tile) {
-  constexpr int row_elems = kRowWords * 4 / static_cast<int>(sizeof(T));
+  constexpr int row_elems = kRowElems<T>;
   constexpr int kAhead = Load::kRowsAhead;
   const int lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
   for (int r0 = threadIdx.x >> 5; r0 < t.rows; r0 += kAhead * n_warps) {
     for (int k = lane; k < n_out; k += 32) {
-      uint32_t v[kAhead];
+      typename Load::Acc v[kAhead];
 #pragma unroll
       for (int j = 0; j < kAhead; ++j) {
         const int r = r0 + j * n_warps;
@@ -414,14 +435,14 @@ __device__ __forceinline__ void vector_fill(const Load& load, const Tile& t,
 template <typename T, typename Load>
 __global__ void __launch_bounds__(kMaxThreads)
 scan_transposed_kernel(Load load, const T* __restrict__ head,
-                       const uint32_t* __restrict__ prefix,
+                       const acc_t<T>* __restrict__ prefix,
                        T* __restrict__ out, int C, int T_out, int t_in,
                        int c_tile, int n_seg, int n_ct, int exclusive,
                        int vec) {
   extern __shared__ uint32_t smem[];
   T* tile = reinterpret_cast<T*>(smem);
   constexpr int n_steps = kSteps<T>;
-  constexpr int row_elems = kRowWords * 4 / static_cast<int>(sizeof(T));
+  constexpr int row_elems = kRowElems<T>;
   const Tile t = block_tile(C, n_steps, c_tile, n_seg, n_ct);
   load.bind(t.b);
   const int n_read = min(n_steps, t_in - t.t0);
@@ -439,7 +460,7 @@ scan_transposed_kernel(Load load, const T* __restrict__ head,
   const int c = threadIdx.x;
   if (c >= t.rows) return;
   const int cg = t.c0 + c;
-  uint32_t run = 0;
+  acc_t<T> run = 0;
   if (head != nullptr) run = widen(head[static_cast<size_t>(t.b) * C + cg]);
   if (prefix != nullptr) {
     run += prefix[(static_cast<size_t>(t.b) * n_seg + t.seg) * C + cg];
@@ -448,7 +469,7 @@ scan_transposed_kernel(Load load, const T* __restrict__ head,
   T* dst = out + (static_cast<size_t>(t.b) * T_out + t.t0) * C + cg;
 #pragma unroll 8
   for (int k = 0; k < n_out; ++k) {
-    const uint32_t next = run + widen(row[k]);
+    const acc_t<T> next = run + widen(row[k]);
     dst[static_cast<size_t>(k) * C] = narrow<T>(exclusive ? run : next);
     run = next;
   }
@@ -459,10 +480,19 @@ int block_threads(int c_tile, int C) {
   return std::min(c_tile, (C + 31) / 32 * 32);
 }
 
+// Dynamic shared memory of a pass C block: a tile row a thread.
+template <typename T>
+int scan_smem_bytes(int c_tile, int C) {
+  return block_threads(c_tile, C) * kRowElems<T> *
+         static_cast<int>(sizeof(T));
+}
+
 template <typename T, typename Load>
 cudaError_t launch(const Load& load, bool aligned16, const void* head,
                    void* out, void* scratch, int n_batch, int C, int T_out,
                    int t_in, int n_steps, int c_tile, cudaStream_t stream) {
+  static_assert(std::is_same_v<typename Load::Acc, acc_t<T>>,
+                "the load stage sums in the element's accumulator");
   if (n_batch <= 0 || C <= 0 || T_out <= 0) return cudaSuccess;
   // The caller sized the scratch for its n_steps: it must be the kernels'.
   if (n_steps != kSteps<T> || c_tile <= 0 || c_tile > kMaxThreads ||
@@ -476,7 +506,7 @@ cudaError_t launch(const Load& load, bool aligned16, const void* head,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int threads = block_threads(c_tile, C);
   const int vec = Load::kVector && aligned16;   // 16-step loads
-  uint32_t* totals = static_cast<uint32_t*>(scratch);
+  acc_t<T>* totals = static_cast<acc_t<T>*>(scratch);
   cudaError_t e;
   if (n_seg > 1) {
     scan_transposed_totals_kernel<Load>
@@ -487,7 +517,7 @@ cudaError_t launch(const Load& load, bool aligned16, const void* head,
     e = launch_seg_prefix(totals, n_batch, n_seg, C, stream);
     if (e != cudaSuccess) return e;
   }
-  const int smem = threads * kRowWords * 4;
+  const int smem = scan_smem_bytes<T>(c_tile, C);
   scan_transposed_kernel<T, Load>
       <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
           load, static_cast<const T*>(head), n_seg > 1 ? totals : nullptr,
@@ -498,12 +528,13 @@ cudaError_t launch(const Load& load, bool aligned16, const void* head,
 
 }  // namespace
 
-// Element form. elem_bytes: 2 (int16) or 4 (int32). head: null for the
-// inclusive scan, else (B, C) elements seeding the exclusive one. Strides
-// in elements. Time is cut into segments of n_steps = 128 / elem_bytes
-// (what the caller sized the scratch for; any other value is refused) and
-// channels into tiles of c_tile (a multiple of 32, at most 256). scratch:
-// (B, ceil(T_out / n_steps), C) uint32, needed when T_out > n_steps.
+// Element form. elem_bytes: 2 (int16), 4 (int32) or 8 (int64). head: null
+// for the inclusive scan, else (B, C) elements seeding the exclusive one.
+// Strides in elements. Time is cut into segments of n_steps = 128 /
+// elem_bytes (what the caller sized the scratch for; any other value is
+// refused) and channels into tiles of c_tile (a multiple of 32, at most
+// 256). scratch: (B, ceil(T_out / n_steps), C) uint32 (uint64 for 8-byte
+// elements), needed when T_out > n_steps.
 extern "C" int mts_scan_transposed(int device, const void* in,
                                    long long bstride, long long cstride,
                                    const void* head, void* out, void* scratch,
@@ -522,6 +553,11 @@ extern "C" int mts_scan_transposed(int device, const void* in,
     const ElemLoad<int32_t> load{static_cast<const int32_t*>(in), bstride,
                                  cstride};
     e = launch<int32_t>(load, false, head, out, scratch, n_batch, C, T_out,
+                        t_in, n_steps, c_tile, st);
+  } else if (elem_bytes == 8) {
+    const ElemLoad<int64_t> load{static_cast<const int64_t*>(in), bstride,
+                                 cstride};
+    e = launch<int64_t>(load, false, head, out, scratch, n_batch, C, T_out,
                         t_in, n_steps, c_tile, st);
   } else {
     e = cudaErrorInvalidValue;
@@ -609,7 +645,14 @@ extern "C" int mts_finalize_u8(int device, const void* bulk,
   return static_cast<int>(e);
 }
 
-// Dynamic shared memory of a pass C block, in bytes (for reports).
-extern "C" int mts_scan_transposed_smem_bytes(int C, int c_tile) {
-  return block_threads(c_tile, C) * kRowWords * 4;
+// Dynamic shared memory of a pass C block, in bytes (for reports); the
+// finalize and plane forms scan int16 (elem_bytes 2).
+extern "C" int mts_scan_transposed_smem_bytes(int C, int c_tile,
+                                              int elem_bytes) {
+  switch (elem_bytes) {
+    case 2: return scan_smem_bytes<int16_t>(c_tile, C);
+    case 4: return scan_smem_bytes<int32_t>(c_tile, C);
+    case 8: return scan_smem_bytes<int64_t>(c_tile, C);
+    default: return -1;
+  }
 }

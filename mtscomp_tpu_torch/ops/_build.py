@@ -126,7 +126,7 @@ def _declare(lib):
     lib.mts_rans_decode_smem_bytes.restype = i
     lib.mts_rans_encode_smem_bytes.argtypes = []
     lib.mts_rans_encode_smem_bytes.restype = i
-    lib.mts_scan_transposed_smem_bytes.argtypes = [i, i]
+    lib.mts_scan_transposed_smem_bytes.argtypes = [i, i, i]
     lib.mts_scan_transposed_smem_bytes.restype = i
     lib.mts_cumsum_time_smem_bytes.argtypes = [i, i, i, i]
     lib.mts_cumsum_time_smem_bytes.restype = i

@@ -8,7 +8,7 @@ selects between them):
 
 - K4 (``csrc/scan_transposed.cu``), the transpose + time scan, in forms
   that share the kernel bodies and differ in their load stage:
-  ``cumsum_time_transposed`` scans int16/int32 elements, and
+  ``cumsum_time_transposed`` scans int16/int32/int64 elements, and
   ``cumsum_time_transposed_planes`` reads a 2-byte element's two byte
   planes itself (K1's rows or a RAW plane viewed in place, or a CONST
   plane's value per chunk), combines them and undoes the zigzag on the
@@ -21,7 +21,12 @@ selects between them):
   K3's ragged tail is just a second pointer, chosen per channel row, so
   one transposed-scan kernel family serves the TPU's three kernels.
 - K5, ``cumsum_time`` (``csrc/cumsum_time.cu``): the carried time cumsum
-  of time-major int16/int32 samples.
+  of time-major int16/int32/int64 samples.
+
+The int64 forms of K4 and K5 have no TPU counterpart: JAX without x64
+holds no int64 tensor, so the JAX package decodes 8-byte dtypes on its
+host codec. They sum in 64-bit accumulators; the other forms are
+unchanged.
 
 K4 and K5 split time into segments, one block each: a pass of segment
 totals into a scratch tensor the wrapper allocates, their exclusive
@@ -39,9 +44,10 @@ counterparts of ``diff_time_jnp``, ``diff_space_jnp``,
 ``zigzag_encode_jnp``, ``zigzag_decode_jnp``, ``cumsum_space_jnp`` and
 ``cumsum_time_jnp``). torch has almost no uint16/uint32 arithmetic, so
 they take the values as same-width integer bits (uint8, int8, int16,
-int32). The encode's ops compute in the element's width, where torch's
-integer arithmetic wraps; the decode's widen to int64 where a sum
-could leave it.
+int32, int64). The encode's ops compute in the element's width, where
+torch's integer arithmetic wraps (two's complement, also at 64 bits);
+the decode's widen to int64 where a sum could leave it, and 8-byte
+elements sum in int64 itself, which wraps at their own width.
 """
 
 import torch
@@ -62,13 +68,16 @@ launches = {'finalize_u8': 0, 'finalize_u8_tail': 0,
             'scan_transposed_i16_inclusive': 0,
             'scan_transposed_i32_seeded': 0,
             'scan_transposed_i32_inclusive': 0,
+            'scan_transposed_i64_seeded': 0,
+            'scan_transposed_i64_inclusive': 0,
             'scan_planes_i16_seeded': 0, 'scan_planes_i16_inclusive': 0,
-            'cumsum_time_i16': 0, 'cumsum_time_i32': 0}
+            'cumsum_time_i16': 0, 'cumsum_time_i32': 0,
+            'cumsum_time_i64': 0}
 
 #: The scan kernels' element types (1-byte data is widened by callers),
 #: and their names in the launch counts.
-SCAN_DTYPES = (torch.int16, torch.int32)
-_WIDTH = {torch.int16: 'i16', torch.int32: 'i32'}
+SCAN_DTYPES = (torch.int16, torch.int32, torch.int64)
+_WIDTH = {torch.int16: 'i16', torch.int32: 'i32', torch.int64: 'i64'}
 
 
 def cumsum_time_transposed_u8(planes, head, hi, n_samples=None):
@@ -233,23 +242,27 @@ def diff_space(x):
 
 
 #: The signed dtype of each integer width (the zigzag's arithmetic shift).
-_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def zigzag_encode(v):
-    """Zigzag of integers held as uint8, int8, int16 or int32 bits ->
-    the codes' bits in the same dtype: ``(s << 1) ^ (s >> (bits - 1))``
+    """Zigzag of integers held as uint8, int8, int16, int32 or int64 bits
+    -> the codes' bits in the same dtype: ``(s << 1) ^ (s >> (bits - 1))``
     on the signed view ``s`` of the same width, as
     ``zigzag_encode_jnp`` (wrapped diffs of unsigned data are small in
-    the signed sense)."""
+    the signed sense; ``s + s`` wraps at the width)."""
     s = v.view(_SIGNED[v.element_size()])
     return ((s + s) ^ (s >> (8 * v.element_size() - 1))).view(v.dtype)
 
 
 def wrap_to(v, dtype):
-    """int64 ``v`` modulo 2^bits as ``dtype`` (uint8, int8, int16, int32):
-    the in-dtype wrap of the JAX package's integer ops."""
+    """int64 ``v`` modulo 2^bits as ``dtype`` (uint8, int8, int16, int32,
+    int64): the in-dtype wrap of the JAX package's integer ops. An int64
+    ``v`` already holds its value modulo 2^64 (torch's integer arithmetic
+    wraps), so it is returned as it is."""
     bits = torch.iinfo(dtype).bits
+    if bits == 64:
+        return v.to(dtype)
     v = v & ((1 << bits) - 1)
     if dtype.is_signed:
         v = v - ((v >> (bits - 1)) << bits)
@@ -257,14 +270,14 @@ def wrap_to(v, dtype):
 
 
 def zigzag_decode(z):
-    """Inverse zigzag of codes held as uint8, int16 or int32 bits ->
-    the decoded integers' bits in the same dtype, ``(z >>> 1) ^ -(z &
+    """Inverse zigzag of codes held as uint8, int16, int32 or int64 bits
+    -> the decoded integers' bits in the same dtype, ``(z >>> 1) ^ -(z &
     1)`` computed in that dtype (no widening pass)."""
     if z.dtype == torch.uint8:
         return (z >> 1) ^ ((z & 1) * 255)
     if z.dtype not in SCAN_DTYPES:
-        raise ValueError("zigzag_decode takes uint8, int16 or int32 codes, "
-                         "not %s" % z.dtype)
+        raise ValueError("zigzag_decode takes uint8, int16, int32 or int64 "
+                         "codes, not %s" % z.dtype)
     # Logical right shift: torch's >> on signed ints is arithmetic.
     return ((z >> 1) & torch.iinfo(z.dtype).max) ^ -(z & 1)
 
@@ -299,12 +312,15 @@ def cumsum_time_geometry(C, itemsize):
                       K5_TILE_BYTES // (c_tile * itemsize))), c_tile
 
 
-def _scratch(B, T, n_steps, C, device):
-    """The (B, segments, C) totals of a split scan; None for one segment."""
+def _scratch(B, T, n_steps, C, device, itemsize=2):
+    """The (B, segments, C) totals of a split scan, in the kernels'
+    accumulator of ``itemsize``-byte elements (32 bits, 64 for 8-byte
+    elements); None for one segment."""
     n_seg = -(-T // n_steps)
     if n_seg <= 1:
         return None
-    return torch.empty((B, n_seg, C), dtype=torch.int32, device=device)
+    return torch.empty((B, n_seg, C), device=device,
+                       dtype=torch.int64 if itemsize == 8 else torch.int32)
 
 
 def _ptr(t):
@@ -312,14 +328,14 @@ def _ptr(t):
 
 
 def cumsum_time(d):
-    """(B, T, C) int16/int32 -> its wrapping cumsum over time (K5).
+    """(B, T, C) int16/int32/int64 -> its wrapping cumsum over time (K5).
 
     The CUDA kernel writes a new contiguous tensor; ``d`` is read as
     contiguous (a strided ``d`` is copied first).
     """
     if d.dim() != 3 or d.dtype not in SCAN_DTYPES:
-        raise ValueError("cumsum_time takes (B, T, C) int16 or int32, got "
-                         "%s %s" % (d.dtype, tuple(d.shape)))
+        raise ValueError("cumsum_time takes (B, T, C) int16, int32 or "
+                         "int64, got %s %s" % (d.dtype, tuple(d.shape)))
     if d.device.type == 'cpu':
         return cumsum_time_ref(d)
     if d.device.type != 'cuda':
@@ -331,7 +347,7 @@ def cumsum_time(d):
     if out.numel() == 0:
         return out
     n_steps, c_tile = cumsum_time_geometry(C, d.element_size())
-    scratch = _scratch(B, T, n_steps, C, d.device)
+    scratch = _scratch(B, T, n_steps, C, d.device, d.element_size())
     lib = _build.library()
     rc = lib.mts_cumsum_time(d.device.index, d.data_ptr(), out.data_ptr(),
                              _ptr(scratch), B, T, C, n_steps, c_tile,
@@ -343,9 +359,9 @@ def cumsum_time(d):
 
 # --- K4: transpose + time scan ------------------------------------------
 
-#: K4's time steps a segment by element size (a tile row of 32 words), and
-#: its largest channel tile (one thread a channel).
-K4_SEG_STEPS = {2: 64, 4: 32}
+#: K4's time steps a segment by element size (128 bytes of a channel row),
+#: and its largest channel tile (one thread a channel).
+K4_SEG_STEPS = {2: 64, 4: 32, 8: 16}
 K4_MAX_C_TILE = 256
 
 
@@ -357,7 +373,8 @@ def scan_transposed_geometry(C, itemsize):
 
 
 def cumsum_time_transposed(elems, head=None, n_samples=None):
-    """(B, C, T') int16/int32 channel-major -> (B, T, C) integrated (K4).
+    """(B, C, T') int16/int32/int64 channel-major -> (B, T, C) integrated
+    (K4).
 
     Without ``head`` the scan is inclusive: ``out[:, t] = sum(elems[:, :,
     :t+1])``, T = ``n_samples`` <= T' (default T'). With ``head`` (B, C)
@@ -381,7 +398,7 @@ def cumsum_time_transposed(elems, head=None, n_samples=None):
     if out.numel() == 0:
         return out
     n_steps, c_tile = scan_transposed_geometry(C, elems.element_size())
-    scratch = _scratch(B, T, n_steps, C, elems.device)
+    scratch = _scratch(B, T, n_steps, C, elems.device, elems.element_size())
     lib = _build.library()
     rc = lib.mts_scan_transposed(
         elems.device.index, elems.data_ptr(), elems.stride(0),
@@ -401,9 +418,9 @@ def cumsum_time_transposed_ref(elems, head=None, n_samples=None):
 
 def _scan_t_check(elems, head, n_samples):
     if elems.dim() != 3 or elems.dtype not in SCAN_DTYPES:
-        raise ValueError("cumsum_time_transposed takes (B, C, T) int16 or "
-                         "int32, got %s %s" % (elems.dtype,
-                                               tuple(elems.shape)))
+        raise ValueError("cumsum_time_transposed takes (B, C, T) int16, "
+                         "int32 or int64, got %s %s" % (elems.dtype,
+                                                       tuple(elems.shape)))
     return _scan_t_head(elems, head, n_samples, elems.dtype)
 
 

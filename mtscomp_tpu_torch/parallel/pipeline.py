@@ -17,10 +17,10 @@ row-linear byte rows; then one of two routes, the JAX package's
   channels, and the fused finalize (K2/K3, ``ops/device_delta.py``) turns
   them into the (B, T, C) samples. Unlike the JAX package, any segment
   width, step count and ragged tail takes it (``_fuse8_geom``).
-- **generic**: everything else that ``supported()`` accepts (1-, 2- and
-  4-byte integers and bitcast floats, rANS/CONST/RAW planes in any mix,
-  C or F order, spatial diff, first- or second-order time diff, flags
-  bit6 without the tail packing). 2-byte F-order time-diff chunks
+- **generic**: everything else that ``supported()`` accepts (1-, 2-, 4-
+  and 8-byte integers and bitcast floats, rANS/CONST/RAW planes in any
+  mix, C or F order, spatial diff, first- or second-order time diff,
+  flags bit6 without the tail packing). 2-byte F-order time-diff chunks
   without a spatial diff whose rANS planes sit in K1's rows as whole
   channel-aligned segments (``Layout.plane_form``) go from K1 straight
   into K4's plane form, which reads the byte planes in place, combines
@@ -28,7 +28,10 @@ row-linear byte rows; then one of two routes, the JAX package's
   the byte planes are reassembled and combined and the inverse zigzag
   applied in plain torch; then K4's element form (fused transpose + time
   scan) for F-order time-diff chunks without a spatial diff, and
-  otherwise the layout, spatial cumsum and K5 passes.
+  otherwise the layout, spatial cumsum and K5 passes. 8-byte elements
+  take the int64 forms of K4 and K5, which the JAX package lacks (JAX
+  without x64 has no int64 tensor, so it decodes them on its host
+  codec).
 
 K1 uses octet tables when every table of the batch is 8-aligned (what
 this codec's writer emits) and its coarse/fixup form otherwise. Unlike
@@ -36,10 +39,9 @@ the JAX package, the port always runs K1: the TPU's switch to a scan
 decoder for word streams beyond its VMEM window has no cause on the
 H100.
 
-Chunks the JAX package also leaves to the host (``supported()`` False
-even alone: 8-byte dtypes, a non-native byte order, a head that is not
-one full row) decode on the host codec, and the module counts them
-(``host_fallback_chunks``).
+Chunks ``supported()`` declines even alone (a non-native byte order, a
+head that is not one full row) decode on the host codec, and the module
+counts them (``host_fallback_chunks``).
 
 Encode (:class:`DeviceBatchEncoder`, the Writer's route for ans files):
 a batch of equal-shape chunks is uploaded once; diffs, zigzag, the
@@ -50,9 +52,9 @@ planes are gathered into (N, 32, S*128) segment rows; K6 (grouped rANS
 encode, ``ops/rans_encode.py``) writes each group's states and
 right-anchored word stream; the streams are left-aligned and fetched
 once, and the containers assembled on the host, byte-identical to the
-host codec's. It takes 1-, 2- and 4-byte elements, every layout and
-table mode and mode-uniform sub-batches of any length; chunks of a
-dtype ``supported()`` declines go to the host codec and are counted
+host codec's. It takes 1-, 2-, 4- and 8-byte elements, every layout and
+table mode and mode-uniform sub-batches of any length; chunks
+``supported()`` declines go to the host codec and are counted
 (``host_encoded_chunks``).
 """
 
@@ -99,13 +101,14 @@ from .mesh import mesh_devices, on_device
 host_fallback_chunks = 0
 
 #: Chunks the Writer's device route encoded on the host codec (the same
-#: bytes): batches ``DeviceBatchEncoder.supported()`` declines (8-byte
-#: dtypes, a non-native byte order, single-sample chunks).
+#: bytes): batches ``DeviceBatchEncoder.supported()`` declines (a
+#: non-native byte order, 65536 channels or more).
 host_encoded_chunks = 0
 
-#: Tensor dtype holding a coding dtype's bits, by item size.
+#: Tensor dtype holding a coding dtype's bits, by item size (unsigned
+#: dtypes travel as the signed bits of their width: uint64 as int64).
 _BITS = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.int16),
-         4: (torch.int32, np.int32)}
+         4: (torch.int32, np.int32), 8: (torch.int64, np.int64)}
 
 
 # --- measured profiles of the 'auto' route ---------------------------------
@@ -368,7 +371,7 @@ class Layout:
     B: int                      # chunks
     T: int                      # samples per chunk
     C: int                      # channels
-    itemsize: int               # bytes per element (1, 2 or 4)
+    itemsize: int               # bytes per element (1, 2, 4 or 8)
     modes: tuple                # per byte plane: MODE_RAW/RANS/CONST
     n_seg: int                  # segments per rANS plane
     seg: int                    # symbols per segment
@@ -634,15 +637,16 @@ class DeviceBatchDecoder:
         self.last_tail = None
 
     def supported(self, parsed_list, n_samples):
-        """Uniform geometry/modes across the batch, integer dtype.
+        """Uniform geometry/modes across the batch, integer dtype in
+        native byte order.
 
-        The JAX package's rule, unchanged: containers that fail here take
-        the host path, which raises the decoders' documented IOErrors
-        for genuinely malformed inputs.
+        The JAX package's rule but for 8-byte dtypes, which it declines
+        because JAX without x64 truncates a uint64 plane accumulator to
+        uint32; the card's int64 forms of K4 and K5 take them. Containers
+        that fail here take the host path, which raises the decoders'
+        documented IOErrors for genuinely malformed inputs.
         """
         if self.dtype.kind not in 'iu':
-            return False
-        if self.dtype.itemsize > 4:
             return False
         if self.dtype.byteorder not in '<=|':
             return False
@@ -676,8 +680,9 @@ class DeviceBatchDecoder:
 
     def decode_tensor(self, parsed_list, n_samples):
         """(B, n_samples, n_channels) decoded tensor on the device, in the
-        coding dtype's bits (uint8, int16 or int32 tensor: an int16
-        tensor for int16 and uint16 files).
+        coding dtype's bits (uint8, int16, int32 or int64 tensor: an int16
+        tensor for int16 and uint16 files, int64 for int64, uint64 and
+        float64 ones).
 
         Raises IOError when any group's stream-word consumption differs
         from its container's stored length (corrupt payload).
@@ -1105,7 +1110,9 @@ def decompress_to_array(reader, first_chunk=0, last_chunk=None, out=None,
 def decompress_to_tensor(reader, first_chunk=0, last_chunk=None,
                          device='cuda'):
     """Chunks [first, last] as one device-resident (n, C) tensor in the
-    reader's dtype; nothing is fetched to the host."""
+    reader's dtype; nothing is fetched to the host. A uint64 file gives
+    a ``torch.uint64`` view of the decoded int64 bits (torch has few
+    uint64 ops: view it as int64 to compute)."""
     device = resolve_device(device)
     last_chunk, total = _span(reader, first_chunk, last_chunk)
     dtype = _torch_dtype(reader.dtype)
@@ -1148,9 +1155,9 @@ class DeviceChunkCache:
 
     def _chunk(self, idx):
         """Chunk ``idx`` decoded on the device, or None for a chunk the
-        batched decode declines (8-byte dtypes, a foreign byte order):
-        decided by ``supported()`` before anything is staged. Every
-        error of the decode itself propagates."""
+        batched decode declines (a foreign byte order): decided by
+        ``supported()`` before anything is staged. Every error of the
+        decode itself propagates."""
         if idx in self._cache:
             self._cache.move_to_end(idx)
             return self._cache[idx][0]
@@ -1405,15 +1412,16 @@ class DeviceBatchEncoder:
         self.profile = None
 
     def supported(self, n_samples):
-        """1-, 2- and 4-byte integers (bitcast floats included) in
-        native order, chunks of at least two samples (a head and a coded
-        row), fewer than 65536 channels (the header's head field). The
-        transform makes one byte plane a byte of the element, and K6
-        codes planes of any element width; the JAX package's encode
+        """Integers of any width (bitcast floats included) in native
+        order, fewer than 65536 channels (the header's head field), any
+        chunk length ``n_samples`` (the JAX package's signature; a chunk
+        of one sample stores no head, as the host codec writes it). The
+        transform makes one byte plane a byte of the element (8 planes
+        for 8-byte elements, whose diffs and zigzag wrap in int64), and
+        K6 codes planes of any element width; the JAX package's encode
         takes 1- and 2-byte elements only."""
-        return (self.dtype.kind in 'iu' and self.dtype.itemsize <= 4
+        return (self.dtype.kind in 'iu'
                 and self.dtype.byteorder in '<=|'
-                and n_samples > 1
                 and self.writer.n_channels < 65536)
 
     def _mark(self, name, t0):
@@ -1450,19 +1458,22 @@ class DeviceBatchEncoder:
             x = torch.from_numpy(np.ascontiguousarray(chunks).view(
                 _BITS[P][1])).to(self.device)
         t0 = self._mark('upload', t0)
+        # The first row is stored verbatim (flags bit1) unless it is the
+        # chunk's only row, as the host codec decides.
+        split_head = T > 1
         transform = _build_transform_fn(
             B, T, C, str(self.dtype), self.order, self.do_time_diff,
-            self.do_spatial_diff, True, self.diff_order)
+            self.do_spatial_diff, split_head, self.diff_order)
         with phase('encode.transform'):
             planes_d, hists_d, head_d = transform(x)
         hists = hists_d.cpu().numpy()
-        heads = head_d.cpu().numpy()
-        n_coded = (T - 1) * C
+        heads = head_d.cpu().numpy() if split_head else None
+        n_coded = (T - 1 if split_head else T) * C
 
         # Channel-aligned segments (flags bit2): same eligibility rule
         # and geometry as the host codec (AnsCodec.encode).
         aligned = (getattr(self.codec, 'channel_aligned', False)
-                   and self.order == 'F' and n_coded > 0)
+                   and self.order == 'F' and split_head and n_coded > 0)
         if aligned:
             k, seg, tp, tcs, n_stream = ans_mod.aligned_geometry(
                 n_coded, C, seg)
@@ -1633,7 +1644,7 @@ class DeviceBatchEncoder:
         for b in range(B):
             multitable = any(plane_tables[(b, p)][1] is not None
                              for p in rans_planes)
-            flags = (1 | 2 | (4 if aligned else 0)
+            flags = (1 | (2 if split_head else 0) | (4 if aligned else 0)
                      | (ans_mod.FLAG_MULTITABLE if multitable else 0)
                      | ans_mod.FLAG_CRC32)
             tdesc = 0
@@ -1646,9 +1657,10 @@ class DeviceBatchEncoder:
                 ans_mod.MAGIC, ans_mod.CONTAINER_VERSION, P,
                 flags, rans.SCALE_BITS, T * C,
                 k if aligned else self.codec.seg_log2,
-                rans.MIN_FREQ, rans.GROUP_ROWS, tdesc, C,
-                tsplit if tsplit > 1 else 0)]
-            parts.append(np.ascontiguousarray(heads[b]).tobytes())
+                rans.MIN_FREQ, rans.GROUP_ROWS, tdesc,
+                C if split_head else 0, tsplit if tsplit > 1 else 0)]
+            if split_head:
+                parts.append(np.ascontiguousarray(heads[b]).tobytes())
             for p in range(P):
                 m = mode_row[p]
                 if m == MODE_CONST:

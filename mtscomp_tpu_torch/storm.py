@@ -9,13 +9,13 @@ tests.py:499-526, run on the machine that executes the hot path).
 
 Matrix axes (every cell decodes byte-exactly through
 :class:`~.parallel.pipeline.DeviceBatchDecoder` with the word audit on;
-cells with items of 4 bytes or less also encode on the device and
-require containers byte-identical to the host codec; the JAX storm
-encodes items of 2 bytes or less):
+every dtype cell also encodes on the device and requires containers
+byte-identical to the host codec; the JAX storm encodes items of 2 bytes
+or less):
 
-- dtype: int8 / uint8 / int16 / uint16 / int32 / uint32, bitcast
-  float16 and float32; int64 / uint64 / float64, which the device decode
-  declines (their bytes then come from the host codec)
+- dtype: int8 / uint8 / int16 / uint16 / int32 / uint32 / int64 /
+  uint64, bitcast float16, float32 and float64 (8-byte items through the
+  int64 forms of K4 and K5; the JAX storm leaves them to its host codec)
 - tables: per-plane vs clustered per-segment multitable (flags bit4)
 - layout: channel-aligned segments (bit2) vs non-aligned
 - table origin: self-written 8-aligned tables (K1's octet form) vs a
@@ -35,8 +35,9 @@ Every cell records the launches of each kernel form
 (:func:`~mtscomp_tpu_torch.launch_counts`) and the chunks the pipeline
 left to the host codec. On the card a decode batch with rANS groups that
 does not launch K1 exactly once fails, as does a device encode of a rANS
-plane that launches no K6, and a cell of 8-byte items that launches any
-kernel.
+plane that launches no K6, and a cell of 8-byte items that leaves a chunk
+to the host codec, launches a scan narrower than 64 bits, or (on the
+card) none of 64 bits.
 
 Usage, from the repository root::
 
@@ -160,12 +161,6 @@ class _patched:
     def __exit__(self, *exc):
         for (mod, name), val in self.saved.items():
             setattr(mod, name, val)
-
-
-def _kernel_counts():
-    """Kernel launches so far, by form (the host-codec counters aside)."""
-    return {k: v for k, v in launch_counts().items()
-            if k not in HOST_COUNTERS}
 
 
 def _k1_launches():
@@ -475,16 +470,21 @@ class Storm:
         return fn
 
     def cell_wide_dtype(self, dtype):
-        """8-byte dtypes: the device decoder declines them (the JAX
-        package's rule: JAX without x64 truncates a uint64 plane
-        accumulator), the device chunk cache returns None for them where
-        the JAX package raises NotImplementedError, and every entry that
-        names the device returns the host codec's exact bytes. Values
-        exceed 2**32 so that a lost upper plane cannot hide."""
+        """8-byte dtypes on the card's route, which the JAX package
+        declines (JAX without x64 truncates a uint64 plane accumulator):
+        every batch decodes on the device byte-exactly
+        (:func:`device_decode_all`; K1 and the int64 forms of K4/K5 on
+        the card), the device chunk cache serves windows, every entry
+        that names the device returns the source's bytes with no chunk
+        on the host codec, and the device encode (8 byte planes, K6)
+        writes the host codec's containers. A cell that launches a scan
+        form narrower than 64 bits fails: a lost upper half would hide
+        there. Values exceed 2**32 (the float64 file holds NaN and -inf),
+        so that a lost upper plane cannot hide either."""
         SR, C, NS, csize = self.SR, self.C, self.NS, self.csize
 
         def fn():
-            before = _kernel_counts()
+            before = launch_counts()
             rng = np.random.default_rng(13)
             walk = np.cumsum(rng.integers(-2000, 2000, size=(NS, C),
                                           dtype=np.int64), axis=0) \
@@ -497,6 +497,7 @@ class Storm:
                 arr = walk.astype(np.float64) * 1.5
                 arr[0, 0] = np.nan
                 arr[0, 1] = -np.inf
+            code = arr.view(np.int64) if dtype == 'float64' else arr
             sub = self.subdir("wide_%s" % dtype)
             raw = sub / 'x.bin'
             arr.tofile(raw)
@@ -504,33 +505,45 @@ class Storm:
                      n_channels=C, dtype=dtype, **self.cbase())
             r = self.open(sub)
             try:
-                parsed = [r.codec.parse(_read_payload(r, 0))]
-                ns0 = r.chunk_bounds[1] - r.chunk_bounds[0]
-                if DeviceBatchDecoder(r, self.device).supported(parsed, ns0):
-                    raise AssertionError("device decoder accepted an 8-byte "
-                                         "dtype")
-                if DeviceChunkCache(r)._chunk(0) is not None:
-                    raise AssertionError("device chunk cache decoded an "
-                                         "8-byte dtype")
+                device_decode_all(r, code, self.device)
+                cache = DeviceChunkCache(r)
+                spans = [(7, csize // 2), (csize - 3, csize + 9),
+                         (NS - csize // 3, NS)]
+                for (a, b) in spans:
+                    got = cache.read_window(a, b)
+                    if got is None or got.tobytes() != arr[a:b].tobytes():
+                        raise AssertionError("device window [%d:%d) "
+                                             "mismatch" % (a, b))
                 got = decompress_to_array(r, device=self.device)
                 if got.dtype != arr.dtype or got.tobytes() != arr.tobytes():
-                    raise AssertionError("host-fallback bulk decode mismatch")
-                for (a, b) in [(7, csize // 2), (csize - 3, csize + 9),
-                               (NS - csize // 3, NS)]:
+                    raise AssertionError("device bulk decode mismatch")
+                for (a, b) in spans:
                     win = r[a:b]                 # the reader names the device
                     if win.dtype != arr.dtype \
                             or win.tobytes() != arr[a:b].tobytes():
                         raise AssertionError("window [%d:%d) mismatch"
                                              % (a, b))
+                encode = device_encode_check(raw, arr, SR, C, self.cbase(),
+                                             self.device)[0]
             finally:
                 r.close()
-            after = _kernel_counts()
-            launched = {k: after[k] - before[k] for k in after
-                        if after[k] != before[k]}
-            if launched:
+            after = launch_counts()
+            moved = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+            host = {k: v for k, v in moved.items() if k in HOST_COUNTERS}
+            if host:
+                raise AssertionError("a file of 8-byte items left chunks "
+                                     "to the host codec: %s" % host)
+            narrow = {k: v for k, v in moved.items()
+                      if k not in HOST_COUNTERS
+                      and not k.startswith('rans_') and '_i64' not in k}
+            if narrow:
                 raise AssertionError("a file of 8-byte items launched %s"
-                                     % launched)
-            return {'declined': 'host-exact'}
+                                     % narrow)
+            if self.on_card and not any('_i64' in k for k in moved):
+                raise AssertionError("a file of 8-byte items decoded on "
+                                     "the card without an int64 scan")
+            return {'encode': encode}
         return fn
 
     def cell_ragged_tail(self):
@@ -786,8 +799,8 @@ class Storm:
         run('dtype_float32', 'bitcast float via the int32 decode + windows',
             rt('float32', expect_fixups='one', window=True))
         for dtype in ('int64', 'uint64', 'float64'):
-            run('wide_dtype_%s' % dtype, 'device path declines; host bytes '
-                'exact through every entry that names the device',
+            run('wide_dtype_%s' % dtype, 'int64 forms of K4/K5 + device '
+                'encode; every entry that names the device on the card',
                 self.cell_wide_dtype(dtype))
         run('segment_tables_int16', 'bit4 multitable on gradient data',
             rt('int16', kind='gradient', ans_table_mode='segment',

@@ -190,8 +190,7 @@ def transcode(cdata, cmeta=None, out=None, outmeta=None, algorithm='ans',
             else None
         if device is not None and cfg.device == 'auto' \
                 and not _encodes_on_device(
-                    r.n_samples * r.n_channels * r.dtype.itemsize,
-                    code_dtype.itemsize, device):
+                    r.n_samples * r.n_channels * r.dtype.itemsize, device):
             device = None              # 'auto' chose the host codec
         target = _Target(codec, device, code_dtype, r.n_channels, order,
                          time_diff, diff_order, spatial_diff)

@@ -218,25 +218,38 @@ def test_small_files_decide_before_any_probe(tmp_path, gpu, no_probe):
 
 def test_wide_dtypes_decide_before_any_probe(tmp_path, monkeypatch, gpu,
                                              no_probe):
-    """8-byte dtypes go to the host before any probe, whatever the size
-    gate says: the device decode declines them."""
-    monkeypatch.setattr(api, 'AUTO_DEVICE_MIN_BYTES', 0)
+    """8-byte dtypes take the rule of every other dtype, since the card
+    decodes and encodes them (the JAX package sends them to its host
+    codec before any probe): under AUTO_DEVICE_MIN_BYTES they go to the
+    host before any probe, and past it the cost model decides, from the
+    file's bytes at its item size."""
     rng = np.random.default_rng(12)
-    arr = (rng.integers(-1000, 1000, size=(2000, 8), dtype=np.int64)
-           + (np.int64(5) << 40))
-    path, cbin, ch = _file(tmp_path, 'a', arr, 1000)
-    r = mt.decompress(cbin, ch, quiet=True, device='auto')
-    try:
-        assert not r._use_device()
-        assert not r._use_device(window=(0, 100))
-        assert np.array_equal(r.to_array(), arr)
-    finally:
-        r.close()
-    w = _writer(path, arr, 1000)
-    try:
-        assert not w._use_device()
-    finally:
-        w.close()
+    walk = (rng.integers(-1000, 1000, size=(2000, 8), dtype=np.int64)
+            + (np.int64(5) << 40))
+    sources = {'int64': walk,
+               'uint64': walk.astype(np.uint64) + (np.uint64(1)
+                                                   << np.uint64(63)),
+               'float64': walk * 1.5}
+    for name, arr in sources.items():
+        path, cbin, ch = _file(tmp_path, name, arr, 1000)
+        r = mt.decompress(cbin, ch, quiet=True, device='auto')
+        w = _writer(path, arr, 1000)
+        try:
+            monkeypatch.setattr(api, 'AUTO_DEVICE_MIN_BYTES', arr.nbytes + 1)
+            assert not r._use_device()
+            assert not r._use_device(window=(0, 100))
+            assert not w._use_device()
+            assert np.array_equal(r.to_array(), arr)
+            monkeypatch.setattr(api, 'AUTO_DEVICE_MIN_BYTES', arr.nbytes)
+            monkeypatch.setattr(pl, 'link_profile', lambda **k: PCIE)
+            monkeypatch.setattr(pl, 'host_profile', lambda: (20e6, 20e6))
+            assert r._use_device() and r._use_device(window=(0, 2000))
+            assert w._use_device()
+            monkeypatch.setattr(pl, 'link_profile', lambda **k: RELAY)
+            assert not r._use_device() and not w._use_device()
+        finally:
+            r.close()
+            w.close()
 
 
 @pytest.mark.parametrize('device', ['cpu', 'none'])

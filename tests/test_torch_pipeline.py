@@ -214,8 +214,9 @@ def test_reader_entry_points(tmp_path_, monkeypatch, name):
         assert np.array_equal(rp[5:T + 7, 2:9], arr[5:T + 7, 2:9])
         counts = mt.launch_counts()
         assert counts['host_fallback_chunks'] == 0
-        # CPU decodes run the twins: no kernel launch is counted.
-        assert len(counts) == 16
+        # CPU decodes run the twins: no kernel launch is counted (17
+        # kernel forms, the int64 scans among them, and 2 host counters).
+        assert len(counts) == 19
         assert not any(counts.values())
     finally:
         rp.close()
@@ -223,12 +224,14 @@ def test_reader_entry_points(tmp_path_, monkeypatch, name):
 
 def test_unsupported_batch_goes_to_the_host(tmp_path_, monkeypatch):
     """A batch the JAX package also leaves to the host (supported()
-    False: here int64) decodes on the host codec and is counted."""
+    False: here a non-native byte order, big-endian int16) decodes on
+    the host codec and is counted."""
     rng = np.random.default_rng(4)
-    arr = np.cumsum(rng.integers(-9, 10, size=(600, 6)), axis=0)
-    path = write_arr(tmp_path_ / 'q.bin', arr.astype(np.int64))
+    arr = np.cumsum(rng.integers(-9, 10, size=(600, 6)), axis=0).astype(
+        '>i2')
+    path = write_arr(tmp_path_ / 'q.bin', arr)
     compress(path, tmp_path_ / 'q.cbin', tmp_path_ / 'q.ch',
-             sample_rate=200.0, n_channels=6, dtype='int64',
+             sample_rate=200.0, n_channels=6, dtype='>i2',
              algorithm='ans', quiet=True, check_after_compress=False,
              device='none')
     mt.reset_launch_counts()

@@ -12,9 +12,10 @@ group's rows as the normative decoder does.
 
 Encode. The port's device encode takes 4-byte elements (int32, uint32,
 float32 through the writer's bitcast), mode-uniform sub-batches and
-adaptive window runs of any length, and segment tables without
-channel-aligned segments; each writes the host codec's bytes, equal to
-the JAX package's host route, with no chunk on the host codec.
+adaptive window runs of any length, segment tables without
+channel-aligned segments and chunks of one sample; each writes the host
+codec's bytes, equal to the JAX package's host route, with no chunk on
+the host codec.
 """
 
 import numpy as np
@@ -208,12 +209,13 @@ WIDE = {
 }
 
 
-def _compress_both(tmp_path, arr, **kw):
+def _compress_both(tmp_path, arr, n_samples=T, **kw):
     """The port's compress on the device route (the twins) and the JAX
-    package's on the host codec: ``(port .cbin, JAX .cbin)`` bytes, and
-    the port's host-encoded chunk count."""
+    package's on the host codec, in chunks of ``n_samples``: asserts
+    their ``.cbin`` and ``.ch`` equal and returns the port's
+    host-encoded chunk count."""
     raw = write_arr(tmp_path / 'w.bin', arr)
-    kw = dict(sample_rate=float(T), n_channels=arr.shape[1],
+    kw = dict(sample_rate=float(n_samples), n_channels=arr.shape[1],
               dtype=arr.dtype, algorithm='ans', quiet=True, **kw)
     mt.reset_launch_counts()
     mt.compress(raw, tmp_path / 'p.cbin', tmp_path / 'p.ch', device='cpu',
@@ -258,6 +260,56 @@ def test_four_byte_elements_encode_on_the_device(tmp_path_, name):
                       quiet=True)
     try:
         assert r.to_array().tobytes() == arr[:2 * T + 300].tobytes()
+    finally:
+        r.close()
+
+
+def _one_sample_source(dtype, n=6, C=40, seed=29):
+    """``n`` samples of a smooth channel profile that moves in time, in
+    ``dtype``'s range (float32: NaN and both infinities planted)."""
+    rng = np.random.default_rng(seed)
+    prof = np.cumsum(rng.integers(-3, 4, size=(n, C)), axis=1)
+    walk = prof + np.cumsum(rng.integers(-9, 10, size=(n, 1)), axis=0)
+    dt = np.dtype(dtype)
+    if dt.kind == 'f':
+        arr = (walk * 0.25).astype(dt)
+        arr.reshape(-1)[[1, C + 2, 2 * C + 3]] = [np.nan, np.inf, -np.inf]
+        return arr
+    info = np.iinfo(dt)
+    mid = (int(info.min) + int(info.max)) // 2
+    return ((walk + mid - int(info.min)) % (int(info.max) - int(info.min)
+                                           + 1) + int(info.min)).astype(dt)
+
+
+ONE_SAMPLE_LAYOUTS = {
+    'f_order1': ORDER1,
+    'c_order': dict(ORDER1, chunk_order='C'),
+    'order2': {'time_diff_order': 2, 'do_spatial_diff': False},
+    'spatial': {'time_diff_order': 1, 'do_spatial_diff': True},
+}
+
+
+@pytest.mark.parametrize('layout', sorted(ONE_SAMPLE_LAYOUTS))
+@pytest.mark.parametrize('dtype', ['uint8', 'int8', 'int16', 'uint16',
+                                   'int32', 'float32'])
+def test_one_sample_chunks_encode_on_the_device(tmp_path_, dtype, layout):
+    """Chunks of one sample (no head: the host codec codes the sample's
+    row itself, flags without bit1) encode on the device route in every
+    layout: the JAX package's host-route file, no chunk on the host
+    codec; the port's device decode returns the source."""
+    arr = _one_sample_source(dtype)
+    opts = ONE_SAMPLE_LAYOUTS[layout]
+    assert _compress_both(tmp_path_, arr, n_samples=1, **opts) == 0
+    r = mt.decompress(tmp_path_ / 'p.cbin', tmp_path_ / 'p.ch', device='cpu',
+                      quiet=True)
+    try:
+        parsed = [r.codec.parse(tp._read_payload(r, i))
+                  for i in range(r.n_chunks)]
+        assert r.n_chunks == arr.shape[0]
+        assert all(p['n_head'] == 0 for p in parsed)
+        mt.reset_launch_counts()
+        assert r.to_array().tobytes() == arr.tobytes()
+        assert mt.launch_counts()['host_fallback_chunks'] == 0
     finally:
         r.close()
 

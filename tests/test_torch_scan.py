@@ -132,8 +132,8 @@ def test_scans_reject_bad_inputs(case):
     e = torch.from_numpy(_ints(rng, (2, 16, 64), np.int16))
     h = torch.from_numpy(_ints(rng, (2, 16), np.int16))
     with pytest.raises(ValueError):
-        if case == 'dtype':
-            dd.cumsum_time_transposed(e.to(torch.int64))
+        if case == 'dtype':             # 1-byte: callers widen it
+            dd.cumsum_time_transposed(e.to(torch.int8))
         elif case == 'n_samples_incl':
             dd.cumsum_time_transposed(e, n_samples=65)
         elif case == 'n_samples_excl':

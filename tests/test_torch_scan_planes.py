@@ -9,9 +9,9 @@ RAW + rANS; zigzag on and off; head-seeded and inclusive), and the route
 that takes it against the JAX package's decode of the same container
 (Pallas in interpret mode). ``pack`` must pick the plane form for
 exactly the layouts whose rANS planes are strided views of K1's rows.
-Every form of K4 and K5 runs the edge shapes the card runs
-(``chip_smoke.SCAN_EDGE_CASES``) through its twin against numpy's
-cumsum in the element's width. Tolerance 0 throughout.
+Every form of K4 and K5 (int16, int32 and int64) runs the edge shapes
+the card runs (``chip_smoke.SCAN_EDGE_CASES``) through its twin against
+numpy's cumsum in the element's width. Tolerance 0 throughout.
 """
 
 import dataclasses
@@ -186,12 +186,11 @@ def test_scan_edge_shapes_match_numpy(case, form):
     a = scan_edge_arrays(case)
     n_run = 0
     for label, entry, _twin, args, kwargs in scan_edge_calls(case, 'cpu'):
+        bits = next((b for b in (16, 32, 64) if 'i%d' % b in label), None)
         if label.startswith('K5') and form == 'k5':
-            np_dt = np.int16 if 'i16' in label else np.int32
-            x = a['elems%d' % (8 * np_dt().itemsize)].transpose(0, 2, 1)
-            want = np.cumsum(x, axis=1, dtype=np_dt)
+            x = a['elems%d' % bits].transpose(0, 2, 1)
+            want = np.cumsum(x, axis=1, dtype=np.dtype('int%d' % bits))
         elif label.startswith('K4 i') and form == 'k4':
-            bits = 16 if 'i16' in label else 32
             seeded = args[1] is not None
             want = _np_scan(a['elems%d' % bits],
                             a['head%d' % bits] if seeded else None,
@@ -212,13 +211,14 @@ def test_scan_edge_shapes_match_numpy(case, form):
         assert got.is_contiguous() and tuple(got.shape) == want.shape, label
         assert np.array_equal(got.numpy(), want), label
         n_run += 1
-    assert n_run == {'k5': 2, 'k4': 4, 'planes': 12}[form]
+    assert n_run == {'k5': 3, 'k4': 6, 'planes': 12}[form]
     assert not any(dd.launches.values())       # the twins never count
 
 
 @pytest.mark.parametrize('C,itemsize', [(1, 2), (7, 4), (385, 2), (385, 4),
                                         (1025, 2), (32768, 2), (32769, 2),
-                                        (40000, 4)])
+                                        (40000, 4), (7, 8), (385, 8),
+                                        (8192, 8), (8193, 8), (40000, 8)])
 def test_scan_geometries(C, itemsize):
     """K5's tile fits its shared-memory budget and covers the channels in
     even tiles; K4's tile is a multiple of 32 of at most 256 channels."""

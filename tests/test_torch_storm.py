@@ -21,7 +21,7 @@ import torch
 import mtscomp_tpu
 import mtscomp_tpu_torch as mt
 from mtscomp_tpu_torch import storm
-from mtscomp_tpu_torch.ops import rans_decode
+from mtscomp_tpu_torch.ops import device_delta, rans_decode
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -94,9 +94,9 @@ def test_quick_cell_passes_on_the_twins(tmp_path, name):
     if name == 'ragged_tail_split':
         assert cell['tail'][:2] == [1, 8] and len(cell['tail'][2]) == 8
     if name == 'wide_dtype_int64':
-        # The bulk decode's 3 chunks and the 1 + 2 + 1 chunks of the
-        # three windows, all on the host codec.
-        assert cell['host'] == {'host_fallback_chunks': 7}
+        # Every decode and the encode on the device route (the twins):
+        # no chunk on the host codec.
+        assert cell['host'] == {} and cell['encode'] == 'twin'
     if name == 'corruption_detected':
         assert cell['detected'] == 'OSError'
     if name == 'encode_region_bound':
@@ -234,17 +234,46 @@ def test_on_the_card_a_device_encode_without_k6_fails(tmp_path, monkeypatch):
 
 
 def test_a_wide_dtype_cell_that_launches_fails(tmp_path, monkeypatch):
+    """A cell of 8-byte items that launches a scan narrower than 64 bits
+    (where an upper half would be lost) fails."""
     real = storm.decompress_to_array
 
     def launching(*a, **k):
-        rans_decode.launches['rans_decode_octet'] += 1
+        device_delta.launches['scan_transposed_i32_seeded'] += 1
         return real(*a, **k)
 
-    monkeypatch.setitem(rans_decode.launches, 'rans_decode_octet', 0)
+    monkeypatch.setitem(device_delta.launches, 'scan_transposed_i32_seeded',
+                        0)
     monkeypatch.setattr(storm, 'decompress_to_array', launching)
     st = storm.Storm(torch.device('cpu'), tmp_path, quick=True)
     st.run_cell('wide_dtype_int64', 'planted launch',
                 st.cell_wide_dtype('int64'))
     assert not st.results[0]['ok']
     assert 'launched' in st.results[0]['error']
-    assert st.results[0]['launches'] == {'rans_decode_octet': 1}
+    assert st.results[0]['launches'] == {'scan_transposed_i32_seeded': 1}
+
+
+@pytest.mark.parametrize('dtype', ['int64', 'uint64', 'float64'])
+def test_a_wide_dtype_cell_that_leaves_a_chunk_to_the_host_fails(
+        tmp_path, monkeypatch, dtype):
+    """A cell of 8-byte items whose decoder declines a batch (the host
+    codec then serves it) fails."""
+    monkeypatch.setattr(storm.DeviceBatchDecoder, 'supported',
+                        lambda self, parsed_list, n_samples: False)
+    st = storm.Storm(torch.device('cpu'), tmp_path, quick=True)
+    st.run_cell('wide_dtype_' + dtype, 'declined',
+                st.cell_wide_dtype(dtype))
+    assert not st.results[0]['ok']
+    assert 'declined' in st.results[0]['error']
+
+
+def test_on_the_card_a_wide_dtype_cell_without_an_int64_scan_fails(
+        tmp_path, monkeypatch):
+    """On the card, a cell of 8-byte items must launch an int64 form of
+    K4 or K5; here the twins, which count nothing, stand for the card."""
+    monkeypatch.setattr(storm.Storm, 'on_card', property(lambda self: True))
+    st = storm.Storm(torch.device('cpu'), tmp_path, quick=True)
+    st.run_cell('wide_dtype_int64', 'no int64 scan',
+                st.cell_wide_dtype('int64'))
+    assert not st.results[0]['ok']
+    assert 'without an int64 scan' in st.results[0]['error']

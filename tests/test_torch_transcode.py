@@ -379,6 +379,9 @@ TRANSCODES_ON_A_DEVICE = {
     # 4-byte codes decode and encode on a device.
     'float32': ('ans', {}, 'float32', 'ans', {}, True, True),
     'uint8': ('zlib', {}, 'uint8', 'ans', {}, False, True),
+    # 8-byte codes too (the JAX package leaves them to its host codec).
+    'int64': ('ans', {}, 'int64', 'ans', {}, True, True),
+    'uint64': ('zlib', {}, 'uint64', 'ans', {}, False, True),
 }
 
 

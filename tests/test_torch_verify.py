@@ -235,7 +235,7 @@ def test_deep_pass_decodes_on_the_device_it_is_given(tmp_path_, decode_calls,
                                                      dtype, kw, damage):
     """``device='cpu'``: an ans file's chunks go through the batched
     device decode (``batch_chunks`` chunks a call, 8 by default), 8-byte
-    dtypes through its host fallback; ``device='none'`` and the
+    dtypes (float64, coded as int64) included; ``device='none'`` and the
     configured default (here the host codec) decode nothing there. The
     report is the same."""
     import mtscomp_tpu_torch as mt
@@ -250,12 +250,8 @@ def test_deep_pass_decodes_on_the_device_it_is_given(tmp_path_, decode_calls,
     n_chunks = len(json.loads(ch.read_text())['chunk_bounds']) - 1
     if damage == 'flipped_byte':
         return                      # the damaged chunk's CRC ends the pass
-    if dtype == 'float64':               # coded as int64: declined
-        assert decode_calls == []
-        assert mt.launch_counts()['host_fallback_chunks'] == n_chunks
-    else:
-        assert sum(decode_calls) == n_chunks and max(decode_calls) <= 8
-        assert mt.launch_counts()['host_fallback_chunks'] == 0
+    assert sum(decode_calls) == n_chunks and max(decode_calls) <= 8
+    assert mt.launch_counts()['host_fallback_chunks'] == 0
 
 
 def test_batch_chunks_bounds_the_deep_pass(tmp_path_, decode_calls):

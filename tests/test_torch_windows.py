@@ -274,28 +274,35 @@ def test_numpy_asarray_protocol(reader_and_arr):
 @pytest.mark.parametrize('dtype', ['int64', 'uint64', 'float64'])
 def test_declined_dtypes_read_through_the_host_path(tmp_path, dtype,
                                                     decode_calls):
-    """8-byte dtypes: ``supported()`` declines the chunk before anything
-    is staged, the cache returns None and counts the window's chunks,
-    and the window is the host codec's (the JAX package's rule,
-    `tests/test_device.py`)."""
-    arr = (_walk(2500, 12, 30).astype(np.int64) * 3).astype(dtype)
+    """8-byte dtypes, which the JAX package's ``supported()`` declines
+    (`tests/test_device.py`) and the port declined before its int64
+    scans, now read through the device chunk cache: one chunk a decode,
+    kept in the LRU, no chunk on the host codec, and every window the
+    source's and the host route's."""
+    arr = (_walk(2500, 12, 30).astype(np.int64) * 3
+           + (np.int64(7) << 40)).astype(dtype)
     path = write_arr(tmp_path / 'd.bin', arr)
     mt.compress(path, tmp_path / 'd.cbin', tmp_path / 'd.ch',
                 sample_rate=1000.0, n_channels=12, dtype=dtype,
                 algorithm='ans', quiet=True, device='none')
     r = mt.decompress(tmp_path / 'd.cbin', tmp_path / 'd.ch', device='cpu',
                       quiet=True)
+    host = mt.decompress(tmp_path / 'd.cbin', tmp_path / 'd.ch',
+                         device='none', quiet=True)
     try:
         mt.reset_launch_counts()
-        assert r._device_window(10, 20) is None
-        assert mt.launch_counts()['host_fallback_chunks'] == 1
-        assert tp.DeviceChunkCache(r).read_window(900, 2100) is None
-        assert mt.launch_counts()['host_fallback_chunks'] == 1 + 3
+        _same(r._device_window(10, 20), arr[10:20])
+        assert decode_calls == [1]
+        _same(tp.DeviceChunkCache(r).read_window(900, 2100), arr[900:2100])
+        assert decode_calls == [1] * 4
         for win in (slice(10, 20), slice(900, 2100, 2), slice(None)):
             _same(r[win], arr[win])
-        assert decode_calls == [] and not r._dev_cache._cache
+            _same(r[win], host[win])
+        assert list(r._dev_cache._cache) == [0, 1, 2]
+        assert mt.launch_counts()['host_fallback_chunks'] == 0
     finally:
         r.close()
+        host.close()
 
 
 @pytest.mark.parametrize('error', [NotImplementedError, RuntimeError])

@@ -245,6 +245,7 @@ from mtscomp_tpu_torch.parallel.pipeline import (
     DeviceBatchDecoder, DeviceBatchEncoder, _decode_fuse8, _rans_planes,
     _read_payload, check_words_used, fuse8_planes, generic_elems,
     generic_planes)
+from mtscomp_tpu_torch.utils import trace
 
 SR = 30000                    # samples per second = samples per chunk
 BATCH = 8                     # chunks per staged batch (the bench's)
@@ -1586,24 +1587,31 @@ def drive_encode_paths(recs):
 
 def encode_layers(rec):
     """compress() of a whole 32-s file by layer, host clock, one Writer
-    batch (8 chunks) at a time as its device route runs them: read (the
-    memmapped chunks), then the encoder's layers (each ends in a
-    synchronize). Write-back, hashing and the sidecar are not in it."""
+    batch (8 chunks) at a time as its device route runs them: seconds of
+    the program's spans (``utils/trace.py``, on for this pass alone),
+    ``write.read`` (the memmapped chunks, read here) and the encoder's
+    (``write.upload``, ``encode.*``, ``write.decide``, ``write.assemble``),
+    with one synchronize after each batch. Write-back, hashing and the
+    sidecar are not in it."""
     w, _ = rec.writer_batch(1)
+    trace.enable_tracing()
+    trace.reset_stats()
     try:
         enc = DeviceBatchEncoder(w, device=DEVICE)
-        enc.profile = {'read': 0.0}
         t_all = time.perf_counter()
         for b0 in range(0, w.n_chunks, BATCH):
-            t0 = time.perf_counter()
-            chunks = np.stack([np.asarray(w.get_chunk(i)) for i in
-                               range(b0, min(b0 + BATCH, w.n_chunks))])
-            enc.profile['read'] += time.perf_counter() - t0
+            with trace.phase('write.read'):
+                chunks = np.stack([np.asarray(w.get_chunk(i)) for i in
+                                   range(b0, min(b0 + BATCH, w.n_chunks))])
             enc.encode_batch(chunks)
+            torch.cuda.synchronize()
         total = time.perf_counter() - t_all
+        spans = {k: v[1] for k, v in trace.phase_stats().items()}
     finally:
+        trace.enable_tracing(False)
+        trace.reset_stats()
         w.close()
-    return dict(enc.profile, total_s=total, raw_mb=rec.arr.nbytes / 1e6)
+    return dict(spans, total_s=total, raw_mb=rec.arr.nbytes / 1e6)
 
 
 def time_encode(encoded):

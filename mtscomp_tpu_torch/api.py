@@ -28,6 +28,7 @@ reference's (mtscomp.py:216-997) as the JAX package implements it.
 """
 
 import bisect
+import contextvars
 import hashlib
 import multiprocessing
 import threading
@@ -49,6 +50,7 @@ from .parallel import pipeline
 from .parallel.pipeline import (DeviceBatchEncoder, DeviceChunkCache,
                                 decompress_to_array, decompress_to_tensor)
 from .utils.misc import Bunch, clip, logger, progress
+from .utils.trace import phase, request_scope
 
 
 # --- The 'auto' route's cost model -----------------------------------------
@@ -509,9 +511,11 @@ class Writer:
             runs = [(None, list(range(len(ids))))]
         out = {}
         for tr, js in runs:
+            with phase('write.read'):
+                # Pages the memmapped chunks in.
+                batch = np.stack([np.asarray(chunks[j]) for j in js])
             payloads = DeviceBatchEncoder(
-                self, transform=tr, device=self.device).encode_batch(
-                    np.stack([np.asarray(chunks[j]) for j in js]))
+                self, transform=tr, device=self.device).encode_batch(batch)
             for j, p in zip(js, payloads):
                 out[ids[j]] = (chunks[j], p)
         return out
@@ -527,13 +531,14 @@ class Writer:
         ids = range(first_chunk, last_chunk)
         if self._use_device():
             runs = []
-            for i in ids:
-                chunk = self.get_chunk(i)
-                if runs and runs[-1][1][0].shape == chunk.shape:
-                    runs[-1][0].append(i)
-                    runs[-1][1].append(chunk)
-                else:
-                    runs.append(([i], [chunk]))
+            with phase('write.read'):
+                for i in ids:
+                    chunk = self.get_chunk(i)
+                    if runs and runs[-1][1][0].shape == chunk.shape:
+                        runs[-1][0].append(i)
+                        runs[-1][1].append(chunk)
+                    else:
+                        runs.append(([i], [chunk]))
             out = {}
             for run_ids, chunks in runs:
                 out.update(self._compress_batch_device(run_ids, chunks))
@@ -554,6 +559,7 @@ class Writer:
 
     # -- output ---------------------------------------------------------------
 
+    @request_scope
     def write(self, out, outmeta, first_chunk=0, last_chunk=None):
         """Write ``.cbin`` + ``.ch``; returns compressed/raw size ratio.
 
@@ -599,53 +605,60 @@ class Writer:
         # them off the write-back thread removes them from the critical
         # path. One in-flight task per stream, joined before the next
         # batch submits, preserves update order and bounds the payload
-        # backlog to two batches.
+        # backlog to two batches. Each task runs in a copy of the
+        # caller's context, so that its spans keep the request
+        # (utils/trace.py).
         self.sha1_compressed = hashlib.sha1()
         self.sha1_uncompressed = hashlib.sha1()
-        prefetch = ThreadPoolExecutor(1)
-        hasher = ThreadPoolExecutor(2)
+        prefetch = ThreadPoolExecutor(1, thread_name_prefix='mts-prefetch')
+        hasher = ThreadPoolExecutor(2, thread_name_prefix='mts-hasher')
+
+        def submit(pool, fn, *args):
+            return pool.submit(contextvars.copy_context().run, fn, *args)
 
         def _update_all(sha, bufs):
-            for b in bufs:
-                sha.update(b)
+            with phase('write.hash'):
+                for b in bufs:
+                    sha.update(b)
 
         hash_pending = []
         try:
             with open(out, 'wb') as fb:
-                fut = (prefetch.submit(self.compress_batch, *bounds(0))
+                fut = (submit(prefetch, self.compress_batch, *bounds(0))
                        if n_batches else None)
                 for batch in progress(range(n_batches),
                                       desc='Compressing',
                                       disable=self.quiet):
                     compressed = fut.result()
                     if batch + 1 < n_batches:
-                        fut = prefetch.submit(self.compress_batch,
-                                              *bounds(batch + 1))
+                        fut = submit(prefetch, self.compress_batch,
+                                     *bounds(batch + 1))
                     first, last = bounds(batch)
                     assert set(compressed) == set(range(first, last))
                     # Ordered write-back: payload order defines the
                     # offset table.
                     raws, payloads = [], []
-                    for idx in sorted(compressed):
-                        chunk, payload = compressed[idx]
-                        parts = (payload if isinstance(payload, list)
-                                 else (payload,))
-                        for part in parts:
-                            fb.write(part)
-                            offset += len(part)
-                            # Hash the parts in byte order (identical
-                            # digest to hashing the joined container).
-                            payloads.append(part)
-                        self.chunk_offsets.append(offset)
-                        # Contiguous memmap slices hash zero-copy.
-                        raws.append(np.ascontiguousarray(chunk))
+                    with phase('write.writeback'):
+                        for idx in sorted(compressed):
+                            chunk, payload = compressed[idx]
+                            parts = (payload if isinstance(payload, list)
+                                     else (payload,))
+                            for part in parts:
+                                fb.write(part)
+                                offset += len(part)
+                                # Hash the parts in byte order (identical
+                                # digest to hashing the joined container).
+                                payloads.append(part)
+                            self.chunk_offsets.append(offset)
+                            # Contiguous memmap slices hash zero-copy.
+                            raws.append(np.ascontiguousarray(chunk))
                     for f in hash_pending:
                         f.result()
                     hash_pending = [
-                        hasher.submit(_update_all, self.sha1_uncompressed,
-                                      raws),
-                        hasher.submit(_update_all, self.sha1_compressed,
-                                      payloads),
+                        submit(hasher, _update_all, self.sha1_uncompressed,
+                               raws),
+                        submit(hasher, _update_all, self.sha1_compressed,
+                               payloads),
                     ]
                 for f in hash_pending:
                     f.result()
@@ -1198,6 +1211,7 @@ class Reader:
         # position in the decoded unique set.
         return out[:, np.searchsorted(uniq, sel)]
 
+    @request_scope
     def to_array(self, first_chunk=0, last_chunk=None, writable=True):
         """Bulk-decode chunks [first, last] into one ndarray.
 
@@ -1249,6 +1263,7 @@ class Reader:
             else:  # pragma: no cover - both built-in codecs batch
                 yield [self._decompress_chunk(i) for i in ids]
 
+    @request_scope
     def to_tensor(self, first_chunk=0, last_chunk=None):
         """Chunks [first, last] as one (n, C) tensor on the reader's
         device, in the reader's dtype; nothing is copied to the host."""
@@ -1379,6 +1394,7 @@ class Reader:
 
     # -- NumPy protocol -----------------------------------------------------------
 
+    @request_scope
     def __getitem__(self, item):
         fallback = np.zeros((0, self.n_channels), dtype=self.dtype)
         if isinstance(item, slice):

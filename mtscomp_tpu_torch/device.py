@@ -19,6 +19,8 @@ import re
 
 import torch
 
+from .utils.trace import count
+
 #: What the ``device`` key of the configuration may hold.
 CONFIG_DEVICES = "'cuda', 'cuda:N', 'cpu', 'none' or 'auto'"
 
@@ -75,3 +77,20 @@ def configured_device(device):
     if device == 'auto':
         return torch.device('cuda') if torch.cuda.is_available() else None
     return resolve_device(device)
+
+
+def to_host(t):
+    """``t.cpu().numpy()``; the bytes of a tensor on a card are counted
+    as fetched (``transfer.d2h_bytes``, :mod:`.utils.trace`)."""
+    if t.device.type != 'cpu':
+        count('transfer.d2h_bytes', t.numel() * t.element_size())
+    return t.cpu().numpy()
+
+
+def to_device(a, device):
+    """The host array ``a`` as a tensor on ``device``; its bytes are
+    counted as uploaded (``transfer.h2d_bytes``) when that is a card."""
+    t, device = torch.from_numpy(a), torch.device(device)
+    if device.type != 'cpu':
+        count('transfer.h2d_bytes', a.nbytes)
+    return t.to(device)

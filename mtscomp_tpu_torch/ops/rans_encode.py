@@ -26,6 +26,7 @@ and masks.
 import numpy as np
 import torch
 
+from ..device import to_host
 from ..models.rans import GROUP_ROWS, LANES, RANS_L, encoder_tables
 from . import _build
 from .device_delta import wrap_to
@@ -192,9 +193,9 @@ def left_align(words, n_words):
     group order (group n's at ``flat[off[n]:off[n] + n_words[n]]``) and
     ``n_words`` the (N,) host counts. One slice per group on the device,
     then one fetch of the used words."""
-    nw = n_words.cpu().numpy().astype(np.int64)
+    nw = to_host(n_words).astype(np.int64)
     cap = words.shape[1]
     if nw.size == 0 or not nw.any():
         return np.zeros(0, np.uint16), nw
     used = torch.cat([words[n, cap - k:] for n, k in enumerate(nw.tolist())])
-    return used.cpu().numpy().view(np.uint16), nw
+    return to_host(used).view(np.uint16), nw

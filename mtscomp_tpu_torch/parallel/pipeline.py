@@ -74,7 +74,7 @@ from ..codec import ans as ans_mod
 from ..codec.ans import (MODE_CONST, MODE_RANS, MODE_RAW, peek_desc,
                          segment_counts)
 from ..codec.ans import seg_freqs as ans_seg_freqs
-from ..device import resolve_device
+from ..device import resolve_device, to_device, to_host
 from ..format import decode_identity
 from ..io_host import pread_exact
 from ..models import rans
@@ -93,7 +93,7 @@ from ..ops.rans_encode import (encode_groups, left_align,
                                pack_encoder_tables, symbol_capacity)
 from ..ops.tables import pack_device_tables
 from ..utils.misc import logger
-from ..utils.trace import phase
+from ..utils.trace import count, phase
 from .mesh import mesh_devices, on_device
 
 #: Chunks decoded on the host codec because ``supported()`` declined
@@ -563,7 +563,7 @@ def _to_tensors(states, words, lookup, dense_pk, counts, const_vals,
     N = states.shape[0]
 
     def put(a, view):
-        return torch.from_numpy(np.ascontiguousarray(a).view(view)).to(device)
+        return to_device(np.ascontiguousarray(a).view(view), device)
 
     return (put(states, np.int32), put(words.reshape(N, -1), np.int16),
             put(lookup, np.int32),
@@ -608,7 +608,7 @@ def check_words_used(parsed_list, used):
     n_groups = sum(len(p['groups']) for p in parsed_list)
     if n_groups == 0:
         return
-    used = used.cpu().numpy().reshape(-1) if torch.is_tensor(used) \
+    used = to_host(used).reshape(-1) if torch.is_tensor(used) \
         else np.asarray(used).reshape(-1)
     i = 0
     for parsed in parsed_list:
@@ -718,13 +718,16 @@ class DeviceBatchDecoder:
                 with on_device(args[0].device):
                     results.append(fn(*args))
         with phase('decode.fetch'):
-            check_words_used(parsed_list,
-                             torch.cat([used.cpu() for _, used in results]))
+            check_words_used(parsed_list, np.concatenate(
+                [to_host(used) for _, used in results]))
             out = np.empty((len(parsed_list), n_samples,
                             self.reader.n_channels), self.dtype)
             bits = out.view(_BITS[self.dtype.itemsize][1])
             pos = 0
             for samples, _used in results:
+                if samples.device.type != 'cpu':
+                    count('transfer.d2h_bytes',
+                          samples.numel() * samples.element_size())
                 torch.from_numpy(bits[pos:pos + samples.shape[0]]).copy_(
                     samples)
                 pos += samples.shape[0]
@@ -912,14 +915,15 @@ class DeviceBatchDecoder:
                 fixups=fixups))
         by_group = (states, words, lookup, dense_pk, counts)
         by_chunk = (const_vals, raw_vals, heads)
-        if devices is None:
-            return fn, _to_tensors(*by_group, *by_chunk, self.device)
-        if G == 0:
-            return fn, [_to_tensors(*by_group, *by_chunk, self.device)]
-        return fn, [_to_tensors(
-            *(a[s * Bl * G:(s + 1) * Bl * G] for a in by_group),
-            *(a[s * Bl:(s + 1) * Bl] for a in by_chunk), dev)
-            for s, dev in enumerate(devices)]
+        with phase('decode.upload'):
+            if devices is None:
+                return fn, _to_tensors(*by_group, *by_chunk, self.device)
+            if G == 0:
+                return fn, [_to_tensors(*by_group, *by_chunk, self.device)]
+            return fn, [_to_tensors(
+                *(a[s * Bl * G:(s + 1) * Bl * G] for a in by_group),
+                *(a[s * Bl:(s + 1) * Bl] for a in by_chunk), dev)
+                for s, dev in enumerate(devices)]
 
 
 def _read_payload(reader, idx):
@@ -985,7 +989,8 @@ def _uniform_batches(readers, chunk_ids, n_samples, dec, multiple=1):
         return ids, [col[k] for k in range(len(readers)) for col in cols]
 
     for idx in chunk_ids:
-        col = [r.codec.parse(_read_payload(r, idx)) for r in readers]
+        with phase('decode.parse'):
+            col = [r.codec.parse(_read_payload(r, idx)) for r in readers]
         if ids and (len(ids) >= limit or not dec.supported(
                 [cols[0][0]] + col, n_samples)):
             yield batch()
@@ -1015,19 +1020,20 @@ def _decode_runs(reader, first_chunk, last_chunk, device):
     bounds, offsets = reader.chunk_bounds, reader.chunk_offsets
     ans = reader.algorithm == 'ans'
     runs = []
-    for idx in range(first_chunk, last_chunk + 1):
-        desc = None
-        if ans:
-            # The 20-byte header: peek_desc raises on a bit6 sub-row
-            # count the full parse would reject.
-            desc = peek_desc(pread_exact(
-                reader.cdata, min(20, offsets[idx + 1] - offsets[idx]),
-                offsets[idx]))
-        key = (bounds[idx + 1] - bounds[idx], desc)
-        if runs and runs[-1][1] == key:
-            runs[-1][0].append(idx)
-        else:
-            runs.append(([idx], key))
+    with phase('decode.parse'):
+        for idx in range(first_chunk, last_chunk + 1):
+            desc = None
+            if ans:
+                # The 20-byte header: peek_desc raises on a bit6 sub-row
+                # count the full parse would reject.
+                desc = peek_desc(pread_exact(
+                    reader.cdata, min(20, offsets[idx + 1] - offsets[idx]),
+                    offsets[idx]))
+            key = (bounds[idx + 1] - bounds[idx], desc)
+            if runs and runs[-1][1] == key:
+                runs[-1][0].append(idx)
+            else:
+                runs.append(([idx], key))
     pos = 0
     for run_ids, (ns, _desc) in runs:
         dec = DeviceBatchDecoder(reader, device) if ans else None
@@ -1098,12 +1104,15 @@ def decompress_to_array(reader, first_chunk=0, last_chunk=None, out=None,
                             getattr(out, 'shape', '')))
     for pos, block in _decode_runs(reader, first_chunk, last_chunk, device):
         if torch.is_tensor(block):
-            block = _as_user_dtype(block.cpu().numpy(), reader)
+            with phase('decode.to_host'):
+                block = _as_user_dtype(to_host(block), reader)
         if out is None and block.shape[0] == total:
             return block
-        if out is None:
-            out = np.empty(shape, reader.dtype)
-        out[pos:pos + block.shape[0]] = block
+        with phase('decode.assemble'):
+            if out is None:
+                out = np.empty(shape, reader.dtype)
+            out[pos:pos + block.shape[0]] = block
+            del block      # freed here, not at the next batch's fetch
     return out
 
 
@@ -1121,8 +1130,8 @@ def decompress_to_tensor(reader, first_chunk=0, last_chunk=None,
         if torch.is_tensor(block):
             block = block.view(dtype)
         else:
-            block = torch.from_numpy(np.ascontiguousarray(
-                block, block.dtype.newbyteorder('='))).to(device)
+            block = to_device(np.ascontiguousarray(
+                block, block.dtype.newbyteorder('=')), device)
         if block.shape[0] == total:
             return block
         if out is None:
@@ -1163,8 +1172,9 @@ class DeviceChunkCache:
             return self._cache[idx][0]
         r = self.reader
         ns = r.chunk_bounds[idx + 1] - r.chunk_bounds[idx]
-        payload = _read_payload(r, idx)
-        parsed = [r.codec.parse(payload)]
+        with phase('decode.parse'):
+            payload = _read_payload(r, idx)
+            parsed = [r.codec.parse(payload)]
         dec = DeviceBatchDecoder(r, r.device)
         if not dec.supported(parsed, ns):
             return None
@@ -1215,8 +1225,8 @@ class DeviceChunkCache:
         if dev.device.type == 'cpu':
             win = dev.clone() if len(parts) == 1 else dev
         else:
-            win = dev.contiguous().cpu()
-        return _as_user_dtype(win.numpy(), r)
+            win = dev.contiguous()
+        return _as_user_dtype(to_host(win), r)
 
 
 def decompress_multi(readers, mesh=None, first_chunk=0, last_chunk=None):
@@ -1407,9 +1417,6 @@ class DeviceBatchEncoder:
         #: last shard's with a mesh): ``(symbols, pk, rcp, counts, cap)``
         #: on the device.
         self.last_kernel_args = None
-        #: Host-clock seconds by layer, accumulated over encode_batch
-        #: calls when set to a dict (each layer ends in a synchronize).
-        self.profile = None
 
     def supported(self, n_samples):
         """Integers of any width (bitcast floats included) in native
@@ -1424,16 +1431,6 @@ class DeviceBatchEncoder:
                 and self.dtype.byteorder in '<=|'
                 and self.writer.n_channels < 65536)
 
-    def _mark(self, name, t0):
-        """Close layer ``name`` opened at ``t0``; returns the new time."""
-        if self.profile is None:
-            return t0
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        self.profile[name] = self.profile.get(name, 0.0) + (t1 - t0)
-        return t1
-
     def encode_batch(self, chunks, mesh=None):
         """chunks: (B, T, C) ndarray in the coding dtype, or a tensor on
         the device holding its bits (``_BITS``) -> list of container
@@ -1446,18 +1443,24 @@ class DeviceBatchEncoder:
         streams left-aligned and fetched, and the filler is dropped. The
         transform and the plane decisions run on the encoder's device as
         without a mesh; the bytes are the same.
+
+        Traced (:mod:`~..utils.trace`), a batch opens ``write.upload``
+        (an ndarray's copy to the device), the ``encode.*`` spans
+        (device work and the fetches that wait for it), ``write.decide``
+        (the host's plane decisions, tables, symbol gather and K6's
+        staging, in pieces around ``encode.seghist``) and
+        ``write.assemble`` (the containers); none nests in another.
         """
         devices = mesh_devices(mesh)
-        t0 = time.perf_counter()
         B, T, C = chunks.shape
         P = self.dtype.itemsize
         seg = self.codec.seg
         if torch.is_tensor(chunks):
             x = chunks
         else:
-            x = torch.from_numpy(np.ascontiguousarray(chunks).view(
-                _BITS[P][1])).to(self.device)
-        t0 = self._mark('upload', t0)
+            with phase('write.upload'):
+                x = to_device(np.ascontiguousarray(chunks).view(
+                    _BITS[P][1]), self.device)
         # The first row is stored verbatim (flags bit1) unless it is the
         # chunk's only row, as the host codec decides.
         split_head = T > 1
@@ -1466,22 +1469,25 @@ class DeviceBatchEncoder:
             self.do_spatial_diff, split_head, self.diff_order)
         with phase('encode.transform'):
             planes_d, hists_d, head_d = transform(x)
-        hists = hists_d.cpu().numpy()
-        heads = head_d.cpu().numpy() if split_head else None
-        n_coded = (T - 1 if split_head else T) * C
+        with phase('write.decide'):
+            hists = to_host(hists_d)
+            heads = to_host(head_d) if split_head else None
+            n_coded = (T - 1 if split_head else T) * C
 
-        # Channel-aligned segments (flags bit2): same eligibility rule
-        # and geometry as the host codec (AnsCodec.encode).
-        aligned = (getattr(self.codec, 'channel_aligned', False)
-                   and self.order == 'F' and split_head and n_coded > 0)
-        if aligned:
-            k, seg, tp, tcs, n_stream = ans_mod.aligned_geometry(
-                n_coded, C, seg)
-        else:
-            k = tp = tcs = 0
-            n_stream = n_coded
-        n_pad = n_stream - n_coded
-        seg_mode = getattr(self.codec, 'table_mode', 'plane') == 'segment'
+            # Channel-aligned segments (flags bit2): same eligibility
+            # rule and geometry as the host codec (AnsCodec.encode).
+            aligned = (getattr(self.codec, 'channel_aligned', False)
+                       and self.order == 'F' and split_head
+                       and n_coded > 0)
+            if aligned:
+                k, seg, tp, tcs, n_stream = ans_mod.aligned_geometry(
+                    n_coded, C, seg)
+            else:
+                k = tp = tcs = 0
+                n_stream = n_coded
+            n_pad = n_stream - n_coded
+            seg_mode = getattr(self.codec, 'table_mode',
+                               'plane') == 'segment'
 
         # Per-segment histograms for segment-table clustering, equal to
         # the host codec's bincounts of its coded stream. Channel-aligned:
@@ -1511,25 +1517,25 @@ class DeviceBatchEncoder:
                         parts.append(histogram256(
                             flat[:, n_full * seg:]).view(B, P, 1, 256))
                     seg_hists = torch.cat(parts, dim=2)
-                seg_hists = seg_hists.cpu().numpy()
-        t0 = self._mark('transform', t0)
+                seg_hists = to_host(seg_hists)
 
         # Host: tables + per-plane modes (uniform across the batch for
         # one device call; mixed batches split below). The decision
         # logic is ans_mod.decide_plane -- the SAME code the host codec
         # runs, so containers stay byte-identical.
-        modes = np.empty((B, P), dtype=np.int64)
-        plane_tables = {}
-        for b in range(B):
-            for p in range(P):
-                seg_fn = ((lambda b=b, p=p: seg_hists[b, p])
-                          if seg_hists is not None else None)
-                mode, ptables, tidx = ans_mod.decide_plane(
-                    hists[b, p], n_pad, n_stream, n_coded, seg,
-                    'segment' if seg_mode else 'plane', seg_fn)
-                modes[b, p] = mode
-                if mode == MODE_RANS:
-                    plane_tables[(b, p)] = (ptables, tidx)
+        with phase('write.decide'):
+            modes = np.empty((B, P), dtype=np.int64)
+            plane_tables = {}
+            for b in range(B):
+                for p in range(P):
+                    seg_fn = ((lambda b=b, p=p: seg_hists[b, p])
+                              if seg_hists is not None else None)
+                    mode, ptables, tidx = ans_mod.decide_plane(
+                        hists[b, p], n_pad, n_stream, n_coded, seg,
+                        'segment' if seg_mode else 'plane', seg_fn)
+                    modes[b, p] = mode
+                    if mode == MODE_RANS:
+                        plane_tables[(b, p)] = (ptables, tidx)
         if not (modes == modes[0]).all():
             # Plane modes are data-dependent per chunk (a quiet chunk
             # codes its high byte CONST, a busy one rANS): encode each
@@ -1556,61 +1562,19 @@ class DeviceBatchEncoder:
         # the host codec (shared helper).
         tsplit = ans_mod.tail_split_for(aligned, mode_row, n_stream, seg)
 
-        group_words, group_states, group_counts = [], [], []
         if rans_planes:
-            segments = segment_counts(n_stream, seg, mode_row,
-                                      tail_split=tsplit)
-            G = -(-len(segments) // GROUP_ROWS)
-            R = GROUP_ROWS
-            S = -(-min(seg, n_stream) // LANES)
-            N = B * G
-            width = len(devices) if devices else 1
-            NP = -(-N // width) * width        # filler groups to the width
-            freq_arr = np.zeros((NP, R, 256), dtype=np.int64)
-            counts_arr = np.zeros((NP, R), dtype=np.int32)
-            # Rows past a group's segments and filler groups are inactive
-            # (count 0); any >= 2-symbol table keeps their lookups in range.
-            freq_arr[:, :, :2] = rans.SCALE // 2
-            for b in range(B):
-                for gi in range(G):
-                    i = b * G + gi
-                    for r, (p, start, n) in enumerate(
-                            segments[gi * R:(gi + 1) * R]):
-                        ptables, tidx = plane_tables[(b, p)]
-                        freq_arr[i, r] = ptables[
-                            0 if tidx is None else tidx[start // seg]]
-                        counts_arr[i, r] = n
-            # Encoder tables once per distinct frequency table.
-            uniq, inv = np.unique(freq_arr.reshape(-1, 256), axis=0,
-                                  return_inverse=True)
-            pk_u, rcp_u = pack_encoder_tables(uniq)
-            pk_arr = pk_u[inv.reshape(-1)].reshape(NP, R, 256)
-            rcp_arr = rcp_u[inv.reshape(-1)].reshape(NP, R, 256)
-            cap = symbol_capacity(counts_arr)
-            t0 = self._mark('host_decisions', t0)
-            symbols = _gather_symbols(
-                planes_d, rans_planes, segments, B=B, G=G, C=C, tcs=tcs,
-                tp=tp, aligned=aligned, n_stream=n_stream, seg=seg, S=S,
-                tsplit=tsplit)
-            if NP > N:
-                symbols = torch.cat([symbols, symbols.new_zeros(
-                    (NP - N, R, S * LANES))])
-            # One shard on the encoder's device without a mesh.
-            shards = devices or (self.device,)
-            per = NP // len(shards)
-            staged = [(dev, tuple(
-                a[s * per:(s + 1) * per].to(dev) for a in (
-                    symbols, torch.from_numpy(pk_arr),
-                    torch.from_numpy(rcp_arr), torch.from_numpy(counts_arr)))
-                + (cap,)) for s, dev in enumerate(shards)]
-            self.last_kernel_args = staged[-1][1]
-            t0 = self._mark('gather_stage', t0)
+            with phase('write.decide'):
+                segments = segment_counts(n_stream, seg, mode_row,
+                                          tail_split=tsplit)
+                staged, G, N = self._stage_k6(
+                    planes_d, plane_tables, segments, rans_planes, devices,
+                    B=B, C=C, tcs=tcs, tp=tp, aligned=aligned,
+                    n_stream=n_stream, seg=seg, tsplit=tsplit)
             outs = []
             with phase('encode.kernel'):
                 for dev, args in staged:
                     with on_device(dev):
                         outs.append(encode_groups(*args))
-            t0 = self._mark('k6', t0)
             with phase('encode.align'):
                 parts = [left_align(w, nw) for _st, w, nw in outs]
                 # Filler groups emit no words: only their counts and
@@ -1618,75 +1582,136 @@ class DeviceBatchEncoder:
                 flat = np.concatenate([f for f, _ in parts])
                 n_words = np.concatenate([nw for _, nw in parts])[:N]
                 states = np.concatenate(
-                    [st.cpu().numpy() for st, _w, _nw in outs]
+                    [to_host(st) for st, _w, _nw in outs]
                 )[:N].view(np.uint32)
-            t0 = self._mark('align_fetch', t0)
-            offs = np.concatenate([[0], np.cumsum(n_words)])
-            for b in range(B):
-                gw, gs, gc = [], [], []
-                for gi in range(G):
-                    i = b * G + gi
-                    segs = segments[gi * R:(gi + 1) * R]
-                    gw.append(flat[offs[i]:offs[i + 1]])
-                    gs.append(states[i, :len(segs)])
-                    gc.append(int(n_words[i]))
-                group_words.append(gw)
-                group_states.append(gs)
-                group_counts.append(gc)
-        else:
-            t0 = self._mark('host_decisions', t0)
-
-        raw_np = (planes_d[:, raw_planes].cpu().numpy() if raw_planes
-                  else None)
 
         # Host: assemble containers (identical layout to AnsCodec.encode).
-        payloads = []
-        for b in range(B):
-            multitable = any(plane_tables[(b, p)][1] is not None
-                             for p in rans_planes)
-            flags = (1 | (2 if split_head else 0) | (4 if aligned else 0)
-                     | (ans_mod.FLAG_MULTITABLE if multitable else 0)
-                     | ans_mod.FLAG_CRC32)
-            tdesc = 0
-            if self.stamp is not None:
-                flags |= ans_mod.FLAG_TRANSFORM
-                tdesc = self.stamp[0] | (4 if self.stamp[1] else 0)
-            if tsplit > 1:
-                flags |= ans_mod.FLAG_TAILSPLIT
-            parts = [ans_mod._HEADER.pack(
-                ans_mod.MAGIC, ans_mod.CONTAINER_VERSION, P,
-                flags, rans.SCALE_BITS, T * C,
-                k if aligned else self.codec.seg_log2,
-                rans.MIN_FREQ, rans.GROUP_ROWS, tdesc,
-                C if split_head else 0, tsplit if tsplit > 1 else 0)]
-            if split_head:
-                parts.append(np.ascontiguousarray(heads[b]).tobytes())
-            for p in range(P):
-                m = mode_row[p]
-                if m == MODE_CONST:
-                    # The constant byte: derive from the histogram.
-                    v = int(np.argmax(hists[b, p]))
-                    parts.append(struct.pack('<BB', m, v))
-                elif m == MODE_RAW:
-                    parts.append(struct.pack('<B', m)
-                                 + raw_np[b, raw_planes.index(p)].tobytes())
-                else:
-                    ptables, tidx = plane_tables[(b, p)]
-                    if multitable:
-                        meta = (struct.pack('<BB', m, ptables.shape[0])
-                                + ptables.astype('<u2').tobytes())
-                        if ptables.shape[0] > 1:
-                            meta += tidx.tobytes()
-                        parts.append(meta)
-                    else:
-                        parts.append(struct.pack('<B', m)
-                                     + ptables[0].astype('<u2').tobytes())
+        with phase('write.assemble'):
+            group_words, group_states, group_counts = [], [], []
             if rans_planes:
-                parts.append(struct.pack('<I', len(group_words[b])))
-                parts.append(np.asarray(group_counts[b], '<u4').tobytes())
-                for st, wd in zip(group_states[b], group_words[b]):
-                    parts.append(st.astype('<u4').tobytes())
-                    parts.append(wd.astype('<u2').tobytes())
-            payloads.append(ans_mod._append_crc(parts))
-        self._mark('assembly', t0)
-        return payloads
+                R = GROUP_ROWS
+                offs = np.concatenate([[0], np.cumsum(n_words)])
+                for b in range(B):
+                    gw, gs, gc = [], [], []
+                    for gi in range(G):
+                        i = b * G + gi
+                        segs = segments[gi * R:(gi + 1) * R]
+                        gw.append(flat[offs[i]:offs[i + 1]])
+                        gs.append(states[i, :len(segs)])
+                        gc.append(int(n_words[i]))
+                    group_words.append(gw)
+                    group_states.append(gs)
+                    group_counts.append(gc)
+            raw_np = (to_host(planes_d[:, raw_planes]) if raw_planes
+                      else None)
+            return [self._container(
+                b, hists, heads, raw_np, plane_tables, mode_row,
+                rans_planes, raw_planes, group_words, group_states,
+                group_counts, T=T, C=C, P=P, k=k, aligned=aligned,
+                split_head=split_head, tsplit=tsplit) for b in range(B)]
+
+    def _stage_k6(self, planes_d, plane_tables, segments, rans_planes,
+                  devices, *, B, C, tcs, tp, aligned, n_stream, seg,
+                  tsplit):
+        """K6's inputs of a mode-uniform batch: its groups' encoder
+        tables (one pack per distinct frequency table) and segment rows,
+        in one shard on the encoder's device, or one per device of the
+        mesh. Returns ``(staged, G, N)``: ``staged`` a list of ``(device,
+        (symbols, pk, rcp, counts, cap))``, ``G`` the groups of a chunk,
+        ``N`` the groups of the batch (filler groups past it)."""
+        G = -(-len(segments) // GROUP_ROWS)
+        R = GROUP_ROWS
+        S = -(-min(seg, n_stream) // LANES)
+        N = B * G
+        width = len(devices) if devices else 1
+        NP = -(-N // width) * width        # filler groups to the width
+        freq_arr = np.zeros((NP, R, 256), dtype=np.int64)
+        counts_arr = np.zeros((NP, R), dtype=np.int32)
+        # Rows past a group's segments and filler groups are inactive
+        # (count 0); any >= 2-symbol table keeps their lookups in range.
+        freq_arr[:, :, :2] = rans.SCALE // 2
+        for b in range(B):
+            for gi in range(G):
+                i = b * G + gi
+                for r, (p, start, n) in enumerate(
+                        segments[gi * R:(gi + 1) * R]):
+                    ptables, tidx = plane_tables[(b, p)]
+                    freq_arr[i, r] = ptables[
+                        0 if tidx is None else tidx[start // seg]]
+                    counts_arr[i, r] = n
+        # Encoder tables once per distinct frequency table.
+        uniq, inv = np.unique(freq_arr.reshape(-1, 256), axis=0,
+                              return_inverse=True)
+        pk_u, rcp_u = pack_encoder_tables(uniq)
+        pk_arr = pk_u[inv.reshape(-1)].reshape(NP, R, 256)
+        rcp_arr = rcp_u[inv.reshape(-1)].reshape(NP, R, 256)
+        cap = symbol_capacity(counts_arr)
+        symbols = _gather_symbols(
+            planes_d, rans_planes, segments, B=B, G=G, C=C, tcs=tcs,
+            tp=tp, aligned=aligned, n_stream=n_stream, seg=seg, S=S,
+            tsplit=tsplit)
+        if NP > N:
+            symbols = torch.cat([symbols, symbols.new_zeros(
+                (NP - N, R, S * LANES))])
+        # One shard on the encoder's device without a mesh.
+        shards = devices or (self.device,)
+        per = NP // len(shards)
+        staged = [(dev, (symbols[s * per:(s + 1) * per].to(dev),)
+                   + tuple(to_device(np.ascontiguousarray(
+                       a[s * per:(s + 1) * per]), dev)
+                       for a in (pk_arr, rcp_arr, counts_arr))
+                   + (cap,)) for s, dev in enumerate(shards)]
+        self.last_kernel_args = staged[-1][1]
+        return staged, G, N
+
+    def _container(self, b, hists, heads, raw_np, plane_tables, mode_row,
+                   rans_planes, raw_planes, group_words, group_states,
+                   group_counts, *, T, C, P, k, aligned, split_head,
+                   tsplit):
+        """Chunk ``b``'s container: the layout of ``AnsCodec.encode``."""
+        multitable = any(plane_tables[(b, p)][1] is not None
+                         for p in rans_planes)
+        flags = (1 | (2 if split_head else 0) | (4 if aligned else 0)
+                 | (ans_mod.FLAG_MULTITABLE if multitable else 0)
+                 | ans_mod.FLAG_CRC32)
+        tdesc = 0
+        if self.stamp is not None:
+            flags |= ans_mod.FLAG_TRANSFORM
+            tdesc = self.stamp[0] | (4 if self.stamp[1] else 0)
+        if tsplit > 1:
+            flags |= ans_mod.FLAG_TAILSPLIT
+        parts = [ans_mod._HEADER.pack(
+            ans_mod.MAGIC, ans_mod.CONTAINER_VERSION, P,
+            flags, rans.SCALE_BITS, T * C,
+            k if aligned else self.codec.seg_log2,
+            rans.MIN_FREQ, rans.GROUP_ROWS, tdesc,
+            C if split_head else 0, tsplit if tsplit > 1 else 0)]
+        if split_head:
+            parts.append(np.ascontiguousarray(heads[b]).tobytes())
+        for p in range(P):
+            m = mode_row[p]
+            if m == MODE_CONST:
+                # The constant byte: derive from the histogram.
+                v = int(np.argmax(hists[b, p]))
+                parts.append(struct.pack('<BB', m, v))
+            elif m == MODE_RAW:
+                parts.append(struct.pack('<B', m)
+                             + raw_np[b, raw_planes.index(p)].tobytes())
+            else:
+                ptables, tidx = plane_tables[(b, p)]
+                if multitable:
+                    meta = (struct.pack('<BB', m, ptables.shape[0])
+                            + ptables.astype('<u2').tobytes())
+                    if ptables.shape[0] > 1:
+                        meta += tidx.tobytes()
+                    parts.append(meta)
+                else:
+                    parts.append(struct.pack('<B', m)
+                                 + ptables[0].astype('<u2').tobytes())
+        if rans_planes:
+            parts.append(struct.pack('<I', len(group_words[b])))
+            parts.append(np.asarray(group_counts[b], '<u4').tobytes())
+            for st, wd in zip(group_states[b], group_words[b]):
+                parts.append(st.astype('<u4').tobytes())
+                parts.append(wd.astype('<u2').tobytes())
+        return ans_mod._append_crc(parts)

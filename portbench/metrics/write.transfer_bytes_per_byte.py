@@ -1,0 +1,9 @@
+"""Bytes the encode copied between host and device, both ways (the
+program's ``transfer.h2d_bytes`` and ``transfer.d2h_bytes`` counters),
+per raw byte compressed."""
+
+from portbench import progspans
+
+
+def read(run):
+    return progspans.transfer_bytes_per_byte(run)

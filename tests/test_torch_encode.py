@@ -28,6 +28,7 @@ from mtscomp_tpu_torch import config as mt_config  # noqa: E402
 from mtscomp_tpu_torch.codec.ans import (MODE_CONST, MODE_RANS,  # noqa: E402
                                          MODE_RAW)
 from mtscomp_tpu_torch.parallel import pipeline as tp  # noqa: E402
+from mtscomp_tpu_torch.utils import trace  # noqa: E402
 
 from conftest import write_arr  # noqa: E402
 
@@ -164,18 +165,29 @@ def test_compress_matches_jax_and_decodes(tmp_path_, name):
 
 def test_staged_tensor_input_and_layer_profile(tmp_path_):
     """A batch already on the device (the coding dtype's bits) encodes
-    to the same bytes; the layer profile covers the route."""
+    to the same bytes; the spans one batch records (``utils/trace.py``)
+    cover the route, the host decisions in three pieces around the
+    device work, and only an ndarray batch opens an upload."""
     make, opts, _ = GEOMS['spiky']
     pw, jw = _writers(tmp_path_, make(), **opts)
     try:
         chunks = _chunks(pw)
         enc = tp.DeviceBatchEncoder(pw, device='cpu')
-        enc.profile = {}
-        staged = enc.encode_batch(torch.from_numpy(chunks))
-        assert staged == enc.encode_batch(chunks) == _host(pw, chunks)
-        assert set(enc.profile) == {'upload', 'transform', 'host_decisions',
-                                    'gather_stage', 'k6', 'align_fetch',
-                                    'assembly'}
+        spans = []
+        trace.enable_tracing()
+        try:
+            for batch in (torch.from_numpy(chunks), chunks):
+                trace.reset_stats()
+                assert enc.encode_batch(batch) == _host(pw, chunks)
+                spans.append({k: v[0] for k, v in
+                              trace.phase_stats().items()})
+        finally:
+            trace.enable_tracing(False)
+            trace.reset_stats()
+        layers = {'encode.transform': 1, 'write.decide': 3,
+                  'encode.seghist': 1, 'encode.kernel': 1,
+                  'encode.align': 1, 'write.assemble': 1}
+        assert spans == [layers, dict(layers, **{'write.upload': 1})]
         symbols, pk, rcp, counts, cap = enc.last_kernel_args
         assert tuple(symbols.shape) == (N_CHUNKS * 3, 32, 16 * 128)
         assert cap == int(counts.sum(dim=1).max())

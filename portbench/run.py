@@ -42,6 +42,8 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 #: Top-level modules that no run may load: JAX and the JAX package.
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'mtscomp_tpu')
+#: The keys a configuration's ``signal`` may hold (``signals.walk``).
+SIGNAL_KEYS = ('step_std', 'clip')
 
 
 def load_cell(name, bench=None):
@@ -134,6 +136,7 @@ def run_cell(spec, seed, seconds, trace, device, control=False, log=print):
 
     config, traffic = spec['config'], spec['traffic']
     sig = config['signal']
+    check_signal(spec['cell']['config'], config)
     n_samples = int(round(traffic['recording_s'] * config['sample_rate']))
     cuda = device.type == 'cuda'
     steps = _Steps(log, T_START)
@@ -221,6 +224,22 @@ def run_cell(spec, seed, seconds, trace, device, control=False, log=print):
                                'idle_gaps': tr.idle_gaps()}
     result['checks'] = checks
     return result
+
+
+def check_signal(name, config):
+    """Refuse a configuration whose recording :func:`signals.walk` would
+    not draw as it says: a ``signal`` key it does not know (a misspelt
+    one would quietly draw the plain walk) or a ``dtype`` other than
+    int16."""
+    def refuse(key, why):
+        raise SystemExit('portbench: configuration %r, key %r: %s'
+                         % (name, key, why))
+    if config['dtype'] != 'int16':
+        refuse('dtype', '%r; the recording is drawn as int16 only'
+               % (config['dtype'],))
+    for key in config['signal']:
+        if key not in SIGNAL_KEYS:
+            refuse(key, 'a signal takes only %s' % ', '.join(SIGNAL_KEYS))
 
 
 class _Steps:

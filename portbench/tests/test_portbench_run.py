@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from mtscomp_tpu_torch.parallel import pipeline
-from portbench import run
+from portbench import run, signals
 
 ROOT = Path(__file__).resolve().parents[2]
 PKG = ROOT / 'portbench'
@@ -142,6 +142,23 @@ def test_a_traced_run_reports_per_layer_metrics_it_can_read(cell):
     host = {m['name'] for m in _spec(cell)['per_layer']
             if m.get('source') == 'host_clock'}
     assert host <= set(res['metrics'])
+
+
+@pytest.mark.parametrize('section, key, value', [
+    ('signal', 'step_sd', [6.0, 6.0]),
+    ('signal', 'spikes', {'rate_hz': 5.0, 'steps': [-60, -90, 150]}),
+    (None, 'dtype', 'uint16'),
+])
+def test_a_configuration_the_walk_cannot_draw_is_refused(
+        monkeypatch, section, key, value):
+    drawn = []
+    monkeypatch.setattr(signals, 'walk', lambda *a, **k: drawn.append(a))
+    spec = _tiny('ap_to_array')
+    (spec['config'][section] if section else spec['config'])[key] = value
+    with pytest.raises(SystemExit, match="'np1_ap', key '%s'" % key):
+        run.run_cell(spec, 1, 0.5, 0, torch.device('cpu'),
+                     log=lambda s: None)
+    assert not drawn
 
 
 def _decode_fault(fault):

@@ -7,6 +7,8 @@ from pathlib import Path
 
 import pytest
 
+from portbench import run
+
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / 'BENCHMARK.json').read_text())
 NAME = re.compile(r'[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}')
@@ -58,6 +60,7 @@ def test_configs():
         for key in c['reduced']:
             assert NAME.fullmatch(key) and key in config['reduced']
         assert 'assumed' in config and 'guarantees' in config
+        run.check_signal(c['name'], config)
 
 
 def test_workloads():

@@ -15,7 +15,13 @@ against the source with the plain reference (:mod:`portbench.reference`).
   removed before each call;
 - ``window``: ``Reader[i0:i1]`` on one open reader, in blocks of
   requests of which ``scroll_share`` start where the last window ended
-  and the rest start anywhere in the file, uniformly.
+  and the rest start anywhere in the file, uniformly;
+- ``multi_to_array``: the recordings of a rig of several probes (the
+  configuration's ``probes``, each encoded to its own file), a fresh
+  ``Reader`` on each and one ``decompress_multi(readers)`` of all of
+  them into host memory, with no mesh.
+
+Every kind but ``multi_to_array`` reads one probe's recording.
 
 ``control`` stands a lossy codec in the program's place: every decoded
 sample, or every sample compressed, loses its lowest bit. It breaks the
@@ -60,13 +66,18 @@ def lossy(a):
 
 
 class Kind:
-    """One call kind on one recording. ``src`` is the recording,
-    ``files`` the working directory, ``mt`` the program's package."""
+    """One call kind on one rig's recordings. ``srcs`` holds one
+    recording a probe (``src`` is the first), ``files`` is the working
+    directory, ``mt`` the program's package."""
 
-    def __init__(self, mt, config, traffic, src, files, device, seed,
+    #: Whether the kind reads several probes at once (``run.check_config``).
+    multi = False
+
+    def __init__(self, mt, config, traffic, srcs, files, device, seed,
                  control):
         self.mt, self.config, self.traffic = mt, config, traffic
-        self.src, self.files, self.device = src, files, device
+        self.srcs, self.src = srcs, srcs[0]
+        self.files, self.device = files, device
         self.control = control
         # Apart, so that the requests do not depend on the sample drawn.
         self.requests = np.random.default_rng([seed, 1])
@@ -74,7 +85,7 @@ class Kind:
         self.raw = os.path.join(files, 'recording.bin')
         self.cbin = os.path.join(files, 'recording.cbin')
         self.ch = os.path.join(files, 'recording.ch')
-        self.raw_bytes = src.nbytes
+        self.raw_bytes = self.src.nbytes
         self.written = 0
 
     def options(self, role):
@@ -88,12 +99,17 @@ class Kind:
                          **self.options('writer'))
         self.written += os.path.getsize(cbin) + os.path.getsize(ch)
 
+    def encode(self, src, raw, cbin, ch):
+        """Write ``src`` to ``raw``, encode it through the program and
+        remove ``raw``."""
+        src.tofile(raw)
+        self.written += src.nbytes
+        self.compress(raw, cbin, ch)
+        os.remove(raw)
+
     def encode_source(self):
         """Write the recording and encode it through the program."""
-        self.src.tofile(self.raw)
-        self.written += self.raw_bytes
-        self.compress(self.raw, self.cbin, self.ch)
-        os.remove(self.raw)
+        self.encode(self.src, self.raw, self.cbin, self.ch)
 
     def ratio(self):
         return self.raw_bytes / (os.path.getsize(self.cbin)
@@ -271,6 +287,58 @@ class WindowRead(Kind):
         self.reader.close()
 
 
+class MultiRead(BulkRead):
+    """``decompress_multi(readers)`` of every probe's whole file, a fresh
+    ``Reader`` on each: the probes' chunks decoded in merged batches."""
+
+    multi = True
+
+    def setup(self):
+        self.paths = []
+        for p, src in enumerate(self.srcs):
+            stem = os.path.join(self.files, 'recording_p%d' % p)
+            self.paths.append((stem + '.cbin', stem + '.ch'))
+            self.encode(src, stem + '.bin', *self.paths[-1])
+        self.raw_bytes = sum(src.nbytes for src in self.srcs)
+        self.coded_bytes = sum(os.path.getsize(cbin)
+                               for cbin, _ in self.paths)
+        self.kept = Reservoir(KEEP, self.sample)
+        self.outs = [None] * KEEP
+
+    def _read(self):
+        readers = []
+        try:
+            for cbin, ch in self.paths:
+                readers.append(self.mt.decompress(cbin, ch,
+                                                  **self.options('reader')))
+            return self.mt.decompress_multi(readers)
+        finally:
+            for r in readers:
+                r.close()
+
+    def ratio(self):
+        return self.raw_bytes / sum(os.path.getsize(cbin)
+                                    + os.path.getsize(ch)
+                                    for cbin, ch in self.paths)
+
+    def check(self):
+        """Each probe's array of every answer kept against that probe's
+        source; an answer with another number of arrays than probes
+        counts every sample wrong."""
+        kept, self.outs = [o for o in self.outs if o is not None], []
+        wrong, checked = 0, len(kept)
+        while kept:
+            out = list(kept.pop())
+            if len(out) != len(self.srcs):
+                out = [None] * len(self.srcs)
+            for got, src in zip(out, self.srcs):
+                if got is not None and self.control:
+                    got = lossy(got)
+                wrong += samples_wrong(got, src)
+        return {'samples_wrong': {'value': wrong, 'at_most': 0},
+                'calls_checked': {'value': checked, 'at_least': 1}}
+
+
 KINDS = {'to_array': BulkRead, 'to_tensor': BulkRead, 'compress': Compress,
-         'window': WindowRead}
+         'window': WindowRead, 'multi_to_array': MultiRead}
 

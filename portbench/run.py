@@ -5,11 +5,12 @@
 
 From the root of a checkout that holds ``BENCHMARK.json``, on a machine
 with the cards the cell asks for: without them the run prints no result
-and exits with code 2. It makes the recording from ``--seed`` on the
-card, writes it and encodes it through the program (set-up), warms up
-one call, then makes the cell's calls one after another for
-``--seconds`` (the window), and judges a sample of their answers against
-the source with the plain reference once the window has closed.
+and exits with code 2. It makes the recording (one for each of the
+configuration's ``probes``) from ``--seed`` on the card, writes it and
+encodes it through the program (set-up), warms up one call, then makes
+the cell's calls one after another for ``--seconds`` (the window), and
+judges a sample of their answers against the source with the plain
+reference once the window has closed.
 
 Earlier lines give the card's name and power limit, the program's
 kernel launches by form and the chunks it left to its host codec, and
@@ -136,19 +137,20 @@ def run_cell(spec, seed, seconds, trace, device, control=False, log=print):
 
     config, traffic = spec['config'], spec['traffic']
     sig = config['signal']
-    check_signal(spec['cell']['config'], config)
+    probes = check_config(spec['cell']['config'], config, traffic['call'])
     n_samples = int(round(traffic['recording_s'] * config['sample_rate']))
     cuda = device.type == 'cuda'
     steps = _Steps(log, T_START)
     if cuda:
         torch.cuda.init()
     steps('start, imports and the card')
-    src = signals.walk(n_samples, config['n_channels'], sig['step_std'],
-                       sig['clip'], seed, device)
+    srcs = [signals.walk(n_samples, config['n_channels'], sig['step_std'],
+                         sig['clip'], signals.probe_seed(seed, p), device)
+            for p in range(probes)]
     steps('the recording drawn')
     files = tempfile.mkdtemp(prefix='portbench-')
     kind = calls_mod.KINDS[traffic['call']](
-        mt, config, traffic, src, files, device.type, seed % (1 << 63),
+        mt, config, traffic, srcs, files, device.type, seed % (1 << 63),
         control)
     try:
         kind.setup()
@@ -226,11 +228,17 @@ def run_cell(spec, seed, seconds, trace, device, control=False, log=print):
     return result
 
 
-def check_signal(name, config):
-    """Refuse a configuration whose recording :func:`signals.walk` would
-    not draw as it says: a ``signal`` key it does not know (a misspelt
-    one would quietly draw the plain walk) or a ``dtype`` other than
-    int16."""
+def check_config(name, config, call):
+    """Refuse a configuration that the cell could not draw or read as it
+    says, before anything is drawn: a ``dtype`` other than int16, a
+    ``signal`` key that :func:`signals.walk` does not know (a misspelt
+    one would quietly draw the plain walk), a ``probes`` that is not a
+    whole number of at least 1, or one that the traffic's ``call`` does
+    not read (several probes need a call kind that reads them all at
+    once, and such a kind needs at least two). Returns the number of
+    probes."""
+    from .calls import KINDS
+
     def refuse(key, why):
         raise SystemExit('portbench: configuration %r, key %r: %s'
                          % (name, key, why))
@@ -240,6 +248,17 @@ def check_signal(name, config):
     for key in config['signal']:
         if key not in SIGNAL_KEYS:
             refuse(key, 'a signal takes only %s' % ', '.join(SIGNAL_KEYS))
+    probes = config.get('probes', 1)
+    if type(probes) is not int or probes < 1:
+        refuse('probes', '%r; a rig records a whole number of probes, at '
+               'least 1' % (probes,))
+    if KINDS[call].multi and probes < 2:
+        refuse('probes', '%d under the call %r, which reads several probes '
+               'at once: give at least 2' % (probes, call))
+    if not KINDS[call].multi and probes > 1:
+        refuse('probes', '%d under the call %r, which reads one recording'
+               % (probes, call))
+    return probes
 
 
 class _Steps:

@@ -15,6 +15,12 @@ time diffs in int16's modular arithmetic, so it then sees the steps
 themselves, and the ratio does not depend on how long a channel spends
 at a rail, which the seed would decide: a walk of steps up to 40 leaves
 +-30000 on most channels within a few minutes.
+
+A rig of several probes (a configuration's ``probes``) draws each probe
+with :func:`walk` from its own seed, :func:`probe_seed`: probe 0 takes
+the run's seed, so a one-probe configuration draws what it always drew,
+and probe ``p >= 1`` the first 63 bits of NumPy's ``SeedSequence`` of
+``(seed mod 2**63, p)``.
 """
 
 import numpy as np
@@ -26,6 +32,16 @@ BLOCK_ELEMENTS = 1 << 27
 def channel_stds(n_channels, step_std):
     lo, hi = step_std
     return np.logspace(np.log10(lo), np.log10(hi), n_channels)
+
+
+def probe_seed(seed, probe):
+    """The seed :func:`walk` draws probe ``probe`` of a rig with."""
+    seed = int(seed) % (1 << 63)
+    if probe == 0:
+        return seed
+    state = np.random.SeedSequence([seed, probe]).generate_state(
+        1, np.uint64)[0]
+    return int(state) >> 1
 
 
 def walk(n_samples, n_channels, step_std, clip, seed, device):

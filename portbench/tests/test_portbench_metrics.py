@@ -2,6 +2,9 @@
 every request, the idle share and idle gaps from intervals, and the
 roofline from bytes."""
 
+import json
+from pathlib import Path
+
 import pytest
 
 from portbench import roofline, stats
@@ -117,3 +120,28 @@ def test_union_and_spread():
     assert stats.gaps([(1, 2), (4, 5)], 0, 6) == [(0, 1), (2, 4), (5, 6)]
     assert stats.spread([1, 2, 3, 4, 5]) == pytest.approx(
         (4.5 - 1.5) / 3)
+
+
+BENCH = json.loads((Path(__file__).resolve().parents[2]
+                    / 'BENCHMARK.json').read_text())
+TENSOR = sorted(m['name'] for m in BENCH['per_layer']
+                if m['name'].startswith('tensor.'))
+
+
+@pytest.mark.parametrize('name', TENSOR)
+def test_a_decode_onto_the_card_reads_as_a_bulk_read_does(name):
+    """Each ``tensor.<q>`` reads what ``read.<q>`` (``decode_gbps`` for
+    the rate) reads of the same window: spans, counters, a trace, or
+    nothing at all."""
+    twin = 'decode_gbps' if name == 'tensor.decode_gbps' \
+        else 'read.' + name.split('.', 1)[1]
+    spans = {'decode.pack': (4, 0.5), 'decode.fetch': (4, 0.25),
+             'decode.parse': (4, 0.2), 'decode.upload': (2, 0.1)}
+    calls = [(0.0, 1.0, 2e9, 5e8), (1.0, 3.0, 2e9, 5e8)]
+    runs = [_run(calls, spans=spans, trace=_trace()), _run(calls),
+            _run(calls, trace=Trace([_event(
+                'user_annotation', 'portbench.to_tensor', 0, 100)]))]
+    for run in runs:
+        assert metric_reader(name)(run) == metric_reader(twin)(run)
+    assert metric_reader(name)(runs[0]) is not None or name in (
+        'tensor.transfer_bytes_per_byte', 'tensor.unspanned_idle_pct')

@@ -10,7 +10,7 @@ import torch
 
 import mtscomp_tpu_torch as mt
 from portbench.reference import decode, samples_wrong
-from portbench.signals import walk
+from portbench.signals import probe_seed, walk
 
 
 def _sha(a):
@@ -28,6 +28,21 @@ def test_signals_are_pinned(step_std, clip, digest):
     assert a.dtype == np.int16 and a.shape == (1000, 7)
     assert clip is None or np.abs(a).max() <= clip
     assert _sha(a) == digest
+
+
+def test_a_rigs_first_probe_is_the_walk_of_the_seed_and_the_next_pinned():
+    cpu = torch.device('cpu')
+    seed = 2**31 + 5
+    a = walk(1000, 7, (6.0, 6.0), 30000, seed, cpu)
+    assert probe_seed(seed, 0) == seed
+    assert np.array_equal(walk(1000, 7, (6.0, 6.0), 30000,
+                               probe_seed(seed, 0), cpu), a)
+    b = walk(1000, 7, (6.0, 6.0), 30000, probe_seed(seed, 1), cpu)
+    assert not np.array_equal(a, b)
+    assert _sha(b) == '6561148c3452452b'
+    seeds = {probe_seed(s, p) for s in (0, 1, seed, 2**40)
+             for p in range(1, 7)}
+    assert len(seeds) == 24 and all(0 <= s < 1 << 63 for s in seeds)
 
 
 def test_signals_follow_the_seed_and_the_blocks(monkeypatch):

@@ -79,7 +79,8 @@ def test_a_run_with_only_the_benchmark_exits_with_no_result(tmp_path):
     assert 'cannot be imported' in proc.stderr
 
 
-CELLS = ['ap_to_array', 'lfp_to_array', 'ap_compress', 'ap_browse']
+CELLS = ['ap_to_array', 'lfp_to_array', 'ap_compress', 'ap_browse',
+         'rig_to_array']
 BENCH = json.loads((ROOT / 'BENCHMARK.json').read_text())
 #: A viewer's cell, left out of BENCHMARK.json (its tail spread too
 #: widely from run to run on the card for any bound): its call kind and
@@ -96,7 +97,26 @@ BROWSE = {
 }
 
 
+#: Probes of the rig of MULTI.
+PROBES = 3
+
+
+def _multi_spec():
+    """A rig of PROBES AP probes read by one ``decompress_multi`` a call,
+    left out of BENCHMARK.json as BROWSE is: the call kind that a
+    multi-probe configuration's cell runs. :func:`_tiny` draws it at
+    500 Hz (its name does not start with ``ap``), so that a call of three
+    probes decodes less than one tiny AP probe does."""
+    spec = run.load_cell('ap_to_array')
+    spec['cell'] = dict(spec['cell'], name='rig_to_array')
+    spec['config']['probes'] = PROBES
+    spec['traffic'] = {'call': 'multi_to_array', 'recording_s': 16}
+    return spec
+
+
 def _spec(cell):
+    if cell == 'rig_to_array':
+        return _multi_spec()
     if any(w['name'] == cell for w in BENCH['workloads']):
         return run.load_cell(cell)
     bench = {k: BENCH[k] + BROWSE.get(k, []) for k in
@@ -159,6 +179,80 @@ def test_a_configuration_the_walk_cannot_draw_is_refused(
         run.run_cell(spec, 1, 0.5, 0, torch.device('cpu'),
                      log=lambda s: None)
     assert not drawn
+
+
+@pytest.mark.parametrize('cell, probes', [
+    ('rig_to_array', 0), ('rig_to_array', 2.0),
+    ('rig_to_array', '3'), ('rig_to_array', True),
+    ('rig_to_array', 1), ('ap_to_array', 2), ('ap_compress', 3),
+    ('ap_browse', 2),
+])
+def test_a_rig_the_call_cannot_read_is_refused(monkeypatch, cell, probes):
+    drawn = []
+    monkeypatch.setattr(signals, 'walk', lambda *a, **k: drawn.append(a))
+    spec = _tiny(cell)
+    spec['config']['probes'] = probes
+    with pytest.raises(SystemExit, match="'np1_ap', key 'probes'"):
+        run.run_cell(spec, 1, 0.5, 0, torch.device('cpu'),
+                     log=lambda s: None)
+    assert not drawn
+
+
+def test_a_rig_is_read_by_one_merged_decode_a_call(monkeypatch):
+    import mtscomp_tpu_torch as mt
+    from mtscomp_tpu_torch.api import Reader
+    seeds, multi, to_array = [], [], []
+    walk, decompress_multi = signals.walk, mt.decompress_multi
+    to_array_real = Reader.to_array
+
+    def spy_walk(*a):
+        seeds.append(a[4])
+        return walk(*a)
+
+    def spy_multi(readers, **kw):
+        multi.append(len(readers))
+        return decompress_multi(readers, **kw)
+
+    def spy_to_array(self, *a, **kw):
+        to_array.append(self)
+        return to_array_real(self, *a, **kw)
+    monkeypatch.setattr(signals, 'walk', spy_walk)
+    monkeypatch.setattr(mt, 'decompress_multi', spy_multi)
+    monkeypatch.setattr(Reader, 'to_array', spy_to_array)
+    seed = 2**31 + 11
+    res = _run('rig_to_array', seed=seed)
+    assert res['correct'] and res['failed'] == 0
+    # The warm-up call, then one a timed call; never the fallback.
+    assert multi == [PROBES] * (res['attempted'] + 1) and not to_array
+    assert seeds == [signals.probe_seed(seed, p) for p in range(PROBES)]
+    assert seeds[0] == seed
+
+
+def _multi_fault(fault):
+    real = pipeline.DeviceBatchDecoder.decode_batch
+
+    def decode_batch(self, parsed_list, n_samples, mesh=None):
+        out = real(self, parsed_list, n_samples, mesh=mesh).copy()
+        per = len(out) // PROBES
+        if fault == 'unchanged':
+            out[:] = 0
+        elif fault == 'half':
+            out[(len(out) + 1) // 2:] = 0
+        elif fault == 'swapped':
+            out[:2 * per] = np.concatenate([out[per:2 * per], out[:per]])
+        else:
+            out.reshape(-1)[out.size // 3] += 1
+        return out
+    return pipeline.DeviceBatchDecoder, 'decode_batch', decode_batch
+
+
+@pytest.mark.parametrize('fault', ['unchanged', 'half', 'swapped',
+                                   'altered'])
+def test_a_broken_merged_decode_is_not_correct(monkeypatch, fault):
+    owner, name, broken = _multi_fault(fault)
+    monkeypatch.setattr(owner, name, broken)
+    res = _run('rig_to_array')
+    assert not res['correct'], res['checks']
 
 
 def _decode_fault(fault):

@@ -60,7 +60,11 @@ def test_configs():
         for key in c['reduced']:
             assert NAME.fullmatch(key) and key in config['reduced']
         assert 'assumed' in config and 'guarantees' in config
-        run.check_signal(c['name'], config)
+        for w in BENCH['workloads']:
+            if w['config'] == c['name']:
+                traffic = json.loads((ROOT / 'portbench' / 'traffic' / (
+                    w['traffic'] + '.json')).read_text())
+                run.check_config(c['name'], config, traffic['call'])
 
 
 def test_workloads():

@@ -44,7 +44,8 @@ d. make seeded Neuropixels-like recordings (30 kHz, 1-s chunks; the
      sample, stored without a head);
 c. hold every kernel form against its plain PyTorch twin on the card,
    at the shapes the decode of those files gives it (byte equality;
-   ``FUSE8_GEOMETRIES`` included),
+   ``FUSE8_GEOMETRIES`` included), K1's tables built on the card
+   (``decode_tables``) also against the host packer's rows,
    K6 on the encode's B=8 batches of both 32-s files; hold K4's plane
    form against its twin and against the plane combine + element form
    (or the finalize) on batches with two coded planes, a CONST and a RAW
@@ -325,6 +326,10 @@ KERNELS = {
     'rans_encode_groups (K6)': (
         'rans_encode', 'mtscomp_tpu_torch/csrc/rans_encode.cu',
         'mtscomp_tpu/ops/pallas_rans_enc.py:86'),
+    'decode_tables (K1\'s tables)': (
+        'decode_tables', 'mtscomp_tpu_torch/csrc/decode_tables.cu',
+        'none: the JAX package packs them on the host '
+        '(mtscomp_tpu/ops/pallas_rans.py pack_device_tables)'),
 }
 
 #: ptxas entry-name fragments (all of them in the mangled name) -> the
@@ -358,7 +363,8 @@ PTXAS_NAMES = (
     (('cumsum_time_scan_kernelIlE',), 'K5 i64 scan'),
     (('seg_prefix_kernelIjE',), 'K4/K5 prefix'),
     (('seg_prefix_kernelIyE',), 'K4/K5 i64 prefix'),
-    (('rans_encode_groups_kernel',), 'K6'))
+    (('rans_encode_groups_kernel',), 'K6'),
+    (('decode_tables_kernel',), 'K1 tables'))
 
 ORDER1 = {'time_diff_order': 1, 'do_spatial_diff': False}
 MODE_NAMES = {ans_codec.MODE_RAW: 'RAW', ans_codec.MODE_RANS: 'RANS',
@@ -555,26 +561,30 @@ FUSE8_GEOMETRIES = ('fuse8_odd_steps', 'fuse8_k5', 'fuse8_1025ch')
 #: the 4-byte files, K5 through C order, the spatial diffs and order 2.
 PATHS = {
     'fuse8': (('int16_385ch', 'int16_384ch', 'uint16_385ch'),
-              ('rans_decode_octet', 'finalize_u8', 'finalize_u8_tail'), ()),
+              ('decode_tables', 'rans_decode_octet', 'finalize_u8',
+               'finalize_u8_tail'), ()),
     'generic': (('spiky_int16_385ch',),
-                ('rans_decode_octet', 'scan_planes_i16_seeded'),
+                ('decode_tables', 'rans_decode_octet',
+                 'scan_planes_i16_seeded'),
                 ('scan_transposed_i16_seeded',)),
     'branches': (tuple(name for name, r in RECORDINGS.items()
                        if r[1] == BRANCH_SECONDS
                        and name not in FUSE8_GEOMETRIES + WIDE)
                  + ('mixed_modes', 'adaptive'),
-                 ('rans_decode_octet', 'rans_decode_coarse_1fixup',
+                 ('decode_tables', 'rans_decode_octet',
+                  'rans_decode_coarse_1fixup',
                   'rans_decode_coarse_2fixups', 'finalize_u8_tail',
                   'scan_planes_i16_seeded', 'scan_transposed_i16_seeded',
                   'scan_transposed_i32_seeded', 'cumsum_time_i16',
                   'cumsum_time_i32'), ()),
     'fuse8_geometries': (FUSE8_GEOMETRIES,
-                         ('rans_decode_octet', 'finalize_u8',
-                          'finalize_u8_tail'),
+                         ('decode_tables', 'rans_decode_octet',
+                          'finalize_u8', 'finalize_u8_tail'),
                          ('scan_planes_i16_seeded',
                           'scan_transposed_i16_seeded',
                           'scan_transposed_i32_seeded', 'cumsum_time_i16')),
-    'wide': (WIDE, ('rans_decode_octet', 'scan_transposed_i64_seeded',
+    'wide': (WIDE, ('decode_tables', 'rans_decode_octet',
+                    'scan_transposed_i64_seeded',
                     'scan_transposed_i64_inclusive', 'cumsum_time_i64'),
              NARROW_SCANS),
 }
@@ -614,17 +624,19 @@ ON_PATH = {form for paths in (PATHS, ENCODE_PATHS)
 #: call (B=1) through the forms of its file's decode path.
 WINDOW_PATHS = {
     'windows_fuse8': (('int16_385ch', 'int16_384ch'),
-                      ('rans_decode_octet', 'finalize_u8',
+                      ('decode_tables', 'rans_decode_octet', 'finalize_u8',
                        'finalize_u8_tail')),
     'windows_generic': (('spiky_int16_385ch',),
-                        ('rans_decode_octet', 'scan_planes_i16_seeded')),
+                        ('decode_tables', 'rans_decode_octet',
+                         'scan_planes_i16_seeded')),
     'windows_branches': (('c_order', 'spatial', 'uint8', 'int32',
                           'float32_order2', 'order2_fuse8', 'adaptive'),
-                         ('rans_decode_octet', 'finalize_u8_tail',
+                         ('decode_tables', 'rans_decode_octet',
+                          'finalize_u8_tail',
                           'scan_transposed_i16_seeded',
                           'scan_transposed_i32_seeded', 'cumsum_time_i16',
                           'cumsum_time_i32')),
-    'windows_wide': (WIDE[:3], ('rans_decode_octet',
+    'windows_wide': (WIDE[:3], ('decode_tables', 'rans_decode_octet',
                                 'scan_transposed_i64_seeded',
                                 'cumsum_time_i64')),
 }
@@ -1188,16 +1200,21 @@ def max_abs_err(a, b, mask=None):
 
 def compare(kernel, twin, args, kwargs, live=None):
     """A kernel and its twin on the same card tensors: (max_abs_err,
-    kernel output). With ``live``, the outputs are K1's (symbols, words
-    used) and only the live symbol columns count."""
+    kernel output), over every tensor of a tuple output. With ``live``,
+    the outputs are K1's (symbols, words used) and only the live symbol
+    columns count."""
     got = kernel(*args, **kwargs)
     ref = twin(*args, **kwargs)
     torch.cuda.synchronize()
     if live is None:
-        require(got.shape == ref.shape and got.dtype == ref.dtype,
-                'kernel %s %s, twin %s %s' % (tuple(got.shape), got.dtype,
-                                              tuple(ref.shape), ref.dtype))
-        err = max_abs_err(got, ref)
+        pairs = (zip(got, ref) if isinstance(got, tuple)
+                 else ((got, ref),))
+        err = 0
+        for g, r in pairs:
+            require(g.shape == r.shape and g.dtype == r.dtype,
+                    'kernel %s %s, twin %s %s' % (tuple(g.shape), g.dtype,
+                                                  tuple(r.shape), r.dtype))
+            err = max(err, max_abs_err(g, r))
     else:
         err = max(max_abs_err(got[0], ref[0], live),
                   max_abs_err(got[1], ref[1]))
@@ -1219,6 +1236,34 @@ def k1_calls(fn, args):
             % ('one fixup' if fixups == 1 else 'two fixups'),
             rd.decode_groups_coarse, rd.decode_groups_coarse_ref, k1_args,
             {'one_fixup': fixups == 1})
+
+
+def k1_tables_call(parsed, fn, args):
+    """The table builder as the staged batch ran it: (name, kernel, twin,
+    args, kwargs), its inputs rebuilt from the parsed chunks by the
+    pipeline's own helpers, after checking that the K1 tables the batch
+    staged (built on the card) equal the host packer's rows bit for bit.
+    None for a batch whose tables the host packed (a foreign table)."""
+    kw = fn.keywords
+    fixups = kw['fixups'] if 'fixups' in kw else kw['lay'].fixups
+    if fixups:
+        return None
+    planes = [p for p, m in enumerate(parsed[0]['modes'])
+              if m == ans_codec.MODE_RANS]
+    B, G = len(parsed), len(parsed[0]['groups'])
+    NG = max(B * G, 1)
+    slots = pipeline.group_slots(B, G, B, kw.get('tail'))
+    freqs, tbase = pipeline.freq_stack(parsed, planes)
+    rows = pipeline.segment_tables(parsed, planes, slots, tbase, NG)
+    lookup, dense, host_fixups = pipeline.host_tables(parsed, slots, NG)
+    require(host_fixups == 0
+            and np.array_equal(args[2].cpu().numpy(), lookup)
+            and np.array_equal(args[3].cpu().numpy(), dense),
+            'the K1 tables built on the card differ from the host packer\'s')
+    t_args = (torch.from_numpy(freqs.view(np.int16)).to(DEVICE),
+              torch.from_numpy(rows).to(DEVICE))
+    return ('decode_tables (K1\'s tables)', rd.decode_tables,
+            rd.decode_tables_ref, t_args, {})
 
 
 def finalize_call(bulk, tail_block, heads, hi):
@@ -1263,6 +1308,10 @@ def check_kernels(recs):
         const_vals, raw_vals, heads = args[5], args[6], args[7]
         kw = fn.keywords
         done = [k1_name]
+        tables = k1_tables_call(parsed, fn, args)
+        if tables is not None:
+            record(*tables)
+            done.append('%s (= the host packer\'s rows)' % tables[0])
         if fn.func is _decode_fuse8:
             bulk, tail_block = fuse8_planes(syms, B=kw['B'], G=kw['G'],
                                             k=kw['k'], tp=kw['tp'],
@@ -1355,6 +1404,7 @@ def check_plane_form(record, planes, heads, zigzag, want):
 #: The kernel wrappers the decode pipeline calls, by the name it calls
 #: them under, and each one's plain twin.
 PIPELINE_TWINS = {
+    'decode_tables': rd.decode_tables_ref,
     'decode_groups': rd.decode_groups_ref,
     'decode_groups_coarse': rd.decode_groups_coarse_ref,
     'cumsum_time': dd.cumsum_time_ref,
@@ -3076,6 +3126,12 @@ def work(key, args, out):
                 6 * out.numel())
     if key.startswith('cumsum_time'):
         return _nbytes(args[0]) + _nbytes(out), out.numel()
+    if key == 'decode_tables':
+        # Each row a table built: two scans of 256 symbols and the entry
+        # (16 operations a symbol), nine compares a searched octet.
+        freqs, rows = args
+        return (sum(_nbytes(t) for t in (*args, *out)),
+                (16 * 256 + 9 * 512) * int((rows >= 0).sum()))
     if key == 'rans_encode':
         _symbols, pk, rcp, counts, _cap = args
         states, _words, n_words = out

@@ -88,9 +88,10 @@ METRIC = 'decompress_throughput_neuropixels_385ch_int16'
 #: The baseline of ``vs_baseline``: the reference's single-threaded zlib
 #: decompression, 22 MB/s (int-brain-lab/mtscomp, README.md:177).
 BASELINE_GBPS = 0.022
-#: Kernel forms the headline's fuse8 route launches at 385 channels (K1
-#: octet and K3), and nothing else.
-DECODE_FORMS = frozenset(('rans_decode_octet', 'finalize_u8_tail'))
+#: Kernel forms the headline's fuse8 route launches at 385 channels (K1's
+#: tables built on the card, K1 octet and K3), and nothing else.
+DECODE_FORMS = frozenset(('decode_tables', 'rans_decode_octet',
+                          'finalize_u8_tail'))
 PHASES = ('probe', 'encode', 'dev_decode', 'e2e', 'dev_encode')
 #: The directory that holds the package, on the children's import path.
 _ROOT = str(Path(__file__).resolve().parent.parent)
@@ -475,8 +476,9 @@ def _phase_dev_decode(tmp, arr, device, sample_rate):
     elif not exact:
         res['error'] = 'round trip mismatch'
     elif on_card and set(launches) != DECODE_FORMS:
-        res.update(gbps=None, error='the decode launched %s, not K1 octet '
-                                    'and K3 alone' % launches)
+        res.update(gbps=None, error='the decode launched %s, not K1\'s '
+                                    'tables, K1 octet and K3 alone'
+                                    % launches)
     return res
 
 

@@ -117,7 +117,9 @@ def _declare(lib):
     lib.mts_cumsum_time.argtypes = [i, p, p, p, i, i, i, i, i, i, p]
     lib.mts_rans_encode_groups.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
                                            ll]
-    for fn in (lib.mts_rans_decode_groups, lib.mts_scan_transposed,
+    lib.mts_decode_tables.argtypes = [i, p, p, p, p, p, i, i]
+    for fn in (lib.mts_rans_decode_groups, lib.mts_decode_tables,
+               lib.mts_scan_transposed,
                lib.mts_scan_transposed_planes, lib.mts_finalize_u8,
                lib.mts_cumsum_time,
                lib.mts_rans_encode_groups):

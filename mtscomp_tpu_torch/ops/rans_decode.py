@@ -15,6 +15,12 @@ Both are bit-identical to the normative coder
 ``models/rans.py::rans_decode_group`` on every live symbol
 (step * 128 + lane below the row's count) and on the words consumed.
 
+``decode_tables`` (twin ``decode_tables_ref``, kernel
+``csrc/decode_tables.cu``) builds K1's octet and dense tables on the card
+from each segment row's frequency table, bit-identical to
+``ops/tables.py::pack_device_tables`` for 8-aligned tables: the packer's
+route for every batch whose tables all are.
+
 torch has almost no uint32/uint16 arithmetic, so the uint32 states and
 uint16 words travel as int32/int16 tensors holding the same bits: the
 kernel reads them as unsigned, and the twins widen to int64 and mask.
@@ -28,10 +34,13 @@ from . import _build
 
 #: Kernel launches in this process, by lookup form (CUDA calls only; the
 #: twins never count): the octet form through :func:`decode_groups`, the
-#: coarse forms through :func:`decode_groups_coarse`.
+#: coarse forms through :func:`decode_groups_coarse`, and the table
+#: builder through :func:`decode_tables`.
 launches = {'rans_decode_octet': 0, 'rans_decode_coarse_1fixup': 0,
-            'rans_decode_coarse_2fixups': 0}
-_FORMS = tuple(launches)                  # indexed by the fixup count
+            'rans_decode_coarse_2fixups': 0, 'decode_tables': 0}
+#: K1's forms, indexed by the fixup count.
+_FORMS = ('rans_decode_octet', 'rans_decode_coarse_1fixup',
+          'rans_decode_coarse_2fixups')
 
 _M32 = 0xFFFFFFFF
 
@@ -185,3 +194,94 @@ def _decode_ref(states, words, lookup, dense_pk, counts, n_steps, fixups):
         x = torch.where(need, ((x << 16) | w) & _M32, x)
         pos += need.sum(1)
     return syms, pos.to(torch.int32)
+
+
+def decode_tables(freqs, rows):
+    """K1's octet and dense tables of each segment row, built on the
+    tensors' device from the rows' frequency tables.
+
+    freqs (U, 256) int16   uint16 frequency tables (bits)
+    rows  (N, 32) int32    each segment row's table in ``freqs``; -1 for a
+                           row without a segment
+
+    Returns ``(octet_pk (N, 32, 128) int32, dense_pk (N, 32, 256) int32)``:
+    for a row of table u, the ``octet_pk`` and ``dense_pk`` (flattened)
+    that :func:`..tables.pack_device_tables` gives ``freqs[u]``, bit for
+    bit where the table is 8-aligned (the octet form is defined only
+    there); zeros for a row of -1 or of an index outside ``freqs``.
+    """
+    _check_table_args(freqs, rows)
+    if freqs.device.type == 'cpu':
+        return decode_tables_ref(freqs, rows)
+    if freqs.device.type != 'cuda':
+        raise ValueError("decode_tables runs on CUDA or CPU tensors, not %s"
+                         % freqs.device)
+    dev = freqs.device
+    N = rows.shape[0]
+    octet = torch.empty((N, GROUP_ROWS, LANES), dtype=torch.int32,
+                        device=dev)
+    dense = torch.empty((N, GROUP_ROWS, 256), dtype=torch.int32, device=dev)
+    if N == 0:
+        return octet, dense
+    lib = _build.library()
+    rc = lib.mts_decode_tables(
+        dev.index, freqs.data_ptr(), rows.data_ptr(), octet.data_ptr(),
+        dense.data_ptr(), _build.stream_handle(freqs), N * GROUP_ROWS,
+        freqs.shape[0])
+    _build.check(lib, rc, 'decode_tables')
+    launches['decode_tables'] += 1
+    return octet, dense
+
+
+def _check_table_args(freqs, rows):
+    if (freqs.dtype != torch.int16 or freqs.dim() != 2
+            or freqs.shape[1] != 256):
+        raise ValueError("decode_tables: freqs must be int16 (U, 256), got "
+                         "%s %s" % (freqs.dtype, tuple(freqs.shape)))
+    if (rows.dtype != torch.int32 or rows.dim() != 2
+            or rows.shape[1] != GROUP_ROWS):
+        raise ValueError("decode_tables: rows must be int32 (N, %d), got "
+                         "%s %s" % (GROUP_ROWS, rows.dtype,
+                                    tuple(rows.shape)))
+    if rows.device != freqs.device:
+        raise ValueError("decode_tables: freqs and rows must be on one "
+                         "device")
+    if not (freqs.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("decode_tables: inputs must be contiguous")
+
+
+def decode_tables_ref(freqs, rows):
+    """Plain PyTorch twin of :func:`decode_tables` (any device): each
+    table built once, then gathered by row."""
+    dev = freqs.device
+    U = freqs.shape[0]
+    f = freqs.to(torch.int64) & 0xFFFF
+    present = f > 0
+    upper = torch.cumsum(f, 1)
+    ranks = torch.cumsum(present, 1)
+    sym = torch.arange(256, device=dev)
+    entry = ((sym << 24) | (f << 12) | (upper - f)) & _M32
+    # The i-th present symbol's entry at i; absent symbols go to a column
+    # that is dropped.
+    dense = torch.zeros((U, 257), dtype=torch.int64, device=dev)
+    dense.scatter_(1, torch.where(present, ranks - 1, 256), entry)
+    dense = dense[:, :256]
+    # searchsorted(upper bounds of the present symbols, 8 * o, 'right'):
+    # the symbols whose upper bound is <= 8 * o are a prefix of all 256
+    # (the bounds never fall), and the present ones among them count.
+    slots = (8 * torch.arange(512, device=dev)).expand(U, 512).contiguous()
+    j = torch.searchsorted(upper, slots, right=True)
+    ids = torch.gather(torch.nn.functional.pad(ranks, (1, 0)), 1, j)
+    octet = (ids[:, 0::4] | (ids[:, 1::4] << 8) | (ids[:, 2::4] << 16)
+             | (ids[:, 3::4] << 24)) & _M32
+    # Rows of no table read an all-zero row appended at index U.
+    idx = rows.to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < U), idx, U)
+    zero = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    return (_as_i32(torch.cat([octet, zero.expand(1, 128)])[idx]),
+            _as_i32(torch.cat([dense, zero.expand(1, 256)])[idx]))
+
+
+def _as_i32(a):
+    """int64 values in [0, 2**32) -> the int32 tensor of the same bits."""
+    return torch.where(a >= 1 << 31, a - (1 << 32), a).to(torch.int32)

@@ -34,7 +34,9 @@ row-linear byte rows; then one of two routes, the JAX package's
   codec).
 
 K1 uses octet tables when every table of the batch is 8-aligned (what
-this codec's writer emits) and its coarse/fixup form otherwise. Unlike
+this codec's writer emits), built on the card from the containers'
+frequency tables (``decode_tables``, ``csrc/decode_tables.cu``), and its
+coarse/fixup form, packed on the host, otherwise. Unlike
 the JAX package, the port always runs K1: the TPU's switch to a scan
 decoder for word streams beyond its VMEM window has no cause on the
 H100.
@@ -91,7 +93,8 @@ from ..ops.device_delta import (cumsum_space, cumsum_time,
                                 diff_space, diff_time, zigzag_decode,
                                 zigzag_encode)
 from ..ops.device_hist import histogram256
-from ..ops.rans_decode import decode_groups, decode_groups_coarse
+from ..ops.rans_decode import (decode_groups, decode_groups_coarse,
+                                decode_tables)
 from ..ops.rans_encode import (encode_groups, left_align,
                                pack_encoder_tables, symbol_capacity)
 from ..ops.tables import pack_device_tables
@@ -562,16 +565,18 @@ def _to_tensors(states, words, lookup, dense_pk, counts, const_vals,
 
     uint32 states and uint16 words travel as int32/int16 tensors holding
     the same bits (torch has almost no unsigned arithmetic); heads as the
-    coding dtype's bits (``_BITS``).
+    coding dtype's bits (``_BITS``). ``lookup`` and ``dense_pk`` may be
+    tensors on ``device`` already (built there by ``decode_tables``).
     """
     N = states.shape[0]
 
     def put(a, view):
+        if torch.is_tensor(a):
+            return a
         return to_device(np.ascontiguousarray(a).view(view), device)
 
     return (put(states, np.int32), put(words.reshape(N, -1), np.int16),
-            put(lookup, np.int32),
-            put(dense_pk.reshape(N, GROUP_ROWS, 256), np.int32),
+            put(lookup, np.int32), put(dense_pk, np.int32),
             put(counts, np.int32), put(const_vals, np.uint8),
             put(raw_vals, np.uint8),
             put(heads, _BITS[heads.dtype.itemsize][1]))
@@ -602,8 +607,9 @@ def args_from_jax_pack(raw_args, device, rows=None):
         words = words.reshape(N, -1)[:, :rows * LANES]
     lookup = (coarse_pk[:, :, 0, :] if octet
               else coarse_pk.reshape(N, GROUP_ROWS, 256))
-    return _to_tensors(states, words, lookup, dense_pk, counts, const_vals,
-                       raw_vals, heads, resolve_device(device))
+    return _to_tensors(states, words, lookup,
+                       dense_pk.reshape(N, GROUP_ROWS, 256), counts,
+                       const_vals, raw_vals, heads, resolve_device(device))
 
 
 def check_words_used(parsed_list, used):
@@ -843,67 +849,50 @@ class DeviceBatchDecoder:
                                  "chunks, %d devices)" % (B, n_shard))
         Bl = B // n_shard
 
-        def group_slot(b, gi):
-            if tail is None:
-                return b * G + gi
-            s, bl = divmod(b, Bl)
-            base = s * Bl * G
-            if gi == G - 1:
-                return base + Bl * (G - 1) + bl
-            return base + bl * (G - 1) + gi
-
+        slots = group_slots(B, G, Bl, tail)
         NG = max(B * G, 1)
         states = np.full((NG, GROUP_ROWS, LANES), RANS_L, dtype=np.uint32)
         words = np.zeros((NG, WR * LANES), dtype=np.uint16)
         counts = np.zeros((NG, GROUP_ROWS), dtype=np.int32)
-        coarse_pk = np.zeros((NG, GROUP_ROWS, 2, LANES), dtype=np.int32)
-        octet_pk = np.zeros((NG, GROUP_ROWS, LANES), dtype=np.int32)
-        dense_pk = np.zeros((NG, GROUP_ROWS, 2, LANES), dtype=np.int32)
         const_vals = np.zeros((B, max(len(const_planes), 1)), dtype=np.uint8)
         raw_vals = np.zeros((B, max(len(raw_planes), 1),
                              n_coded if raw_planes else 1), dtype=np.uint8)
         heads = np.zeros((B, C), dtype=self.dtype)
-        table_cache = {}
-        needs_fixup2 = False
-        octet_ok = True
-
-        def packed_table(parsed, p, start):
-            # Identical tables across chunks (the common case) pack once.
-            nonlocal needs_fixup2, octet_ok
-            table = ans_seg_freqs(parsed, p, start)
-            key = table.tobytes()
-            if key not in table_cache:
-                table_cache[key] = pack_device_tables(table)
-            cpk, dpk, n2, orow = table_cache[key]
-            needs_fixup2 = needs_fixup2 or n2
-            if orow is None:
-                octet_ok = False
-                orow = 0
-            return cpk, dpk, orow
-
+        # Segment rows, the same in every chunk of the batch (supported()
+        # holds the geometry uniform): each group's rows' symbol counts.
+        seg_n = np.array([n for g in first['groups']
+                          for _p, _s, n in g['segments']], dtype=np.int32)
         for b, parsed in enumerate(parsed_list):
             if has_head:
                 heads[b] = parsed['head'].view(self.dtype)
             for gi, g in enumerate(parsed['groups']):
-                i = group_slot(b, gi)
+                i = slots[b, gi]
                 R = len(g['segments'])
                 states[i, :R] = g['states']
                 words[i, :g['words'].size] = g['words']
-                for r, (p, start, n) in enumerate(g['segments']):
-                    coarse_pk[i, r], dense_pk[i, r], octet_pk[i, r] = \
-                        packed_table(parsed, p, start)
-                    counts[i, r] = n
+                counts[i, :R] = seg_n[gi * GROUP_ROWS:gi * GROUP_ROWS + R]
             for j, p in enumerate(const_planes):
                 const_vals[b, j] = parsed['planes'][p]['value']
             for j, p in enumerate(raw_planes):
                 raw_vals[b, j] = parsed['planes'][p]['raw']
 
-        # K1's lookup: octet rows when every table is 8-aligned, else the
-        # coarse tables with one fixup, or two when some 16-slot bucket
-        # holds three symbols.
-        fixups = 0 if octet_ok else (2 if needs_fixup2 else 1)
-        lookup = octet_pk if fixups == 0 else coarse_pk.reshape(
-            NG, GROUP_ROWS, 256)
+        # K1's tables. When every table of the batch is 8-aligned (what
+        # this codec's writer emits), the card builds each row's octet and
+        # dense tables from the containers' frequency tables
+        # (decode_tables); otherwise the host packs them, and K1 takes
+        # the octet form still where it can, else the coarse tables with
+        # one fixup, or two when some 16-slot bucket holds three symbols.
+        freqs, tbase = freq_stack(parsed_list, rans_planes)
+        on_card = bool(rans_planes) and not np.any(freqs & 7)
+        if on_card:
+            fixups = 0
+            table_rows = segment_tables(parsed_list, rans_planes, slots,
+                                        tbase, NG)
+            count('decode.tables_on_card', len(freqs))
+        else:
+            lookup, dense_pk, fixups = host_tables(parsed_list, slots, NG)
+            if len(freqs):
+                count('decode.tables_on_host', len(freqs))
         self.last_tail = tail
         if fuse8:
             fn = functools.partial(_decode_fuse8, B=Bl, T=T, G=G, S=S, k=k,
@@ -917,17 +906,124 @@ class DeviceBatchDecoder:
                 do_spatial_diff=do_spatial_diff, zigzag=first['zigzag'],
                 has_head=has_head, aligned=aligned, tail_split=tail_split,
                 fixups=fixups))
-        by_group = (states, words, lookup, dense_pk, counts)
-        by_chunk = (const_vals, raw_vals, heads)
+
+        def stage(g0, g1, c0, c1, device):
+            # Groups [g0, g1) and chunks [c0, c1) on ``device``.
+            if on_card:
+                t0, t1 = tbase[c0], tbase[c1]
+                rows = table_rows[g0:g1]
+                tables = decode_tables(
+                    to_device(freqs[t0:t1].view(np.int16), device),
+                    to_device(np.where(rows >= 0, rows - t0, -1).astype(
+                        np.int32), device))
+            else:
+                tables = (lookup[g0:g1], dense_pk[g0:g1])
+            return _to_tensors(states[g0:g1], words[g0:g1], *tables,
+                               counts[g0:g1], const_vals[c0:c1],
+                               raw_vals[c0:c1], heads[c0:c1], device)
+
         with phase('decode.upload'):
             if devices is None:
-                return fn, _to_tensors(*by_group, *by_chunk, self.device)
+                return fn, stage(0, NG, 0, B, self.device)
             if G == 0:
-                return fn, [_to_tensors(*by_group, *by_chunk, self.device)]
-            return fn, [_to_tensors(
-                *(a[s * Bl * G:(s + 1) * Bl * G] for a in by_group),
-                *(a[s * Bl:(s + 1) * Bl] for a in by_chunk), dev)
-                for s, dev in enumerate(devices)]
+                return fn, [stage(0, NG, 0, B, self.device)]
+            return fn, [stage(s * Bl * G, (s + 1) * Bl * G, s * Bl,
+                              (s + 1) * Bl, dev)
+                        for s, dev in enumerate(devices)]
+
+
+def group_slots(B, G, Bl, tail):
+    """(B, G) int array: the staged group of chunk b's group gi. Groups
+    are chunk-major; with a ragged ``tail``, each shard of ``Bl`` chunks
+    stages its chunks' full groups first, then their tail groups."""
+    b = np.arange(B)[:, None]
+    gi = np.arange(G)[None, :]
+    if tail is None:
+        return b * G + gi
+    s, bl = np.divmod(b, Bl)
+    base = s * Bl * G
+    return np.where(gi == G - 1, base + Bl * (G - 1) + bl,
+                    base + bl * (G - 1) + gi)
+
+
+def plane_tables(parsed, p):
+    """(n, 256) uint16: the frequency tables plane ``p`` of a parsed
+    container carries (one unless it holds several, flags bit4)."""
+    plane = parsed['planes'][p]
+    return plane['tables'] if 'tables' in plane else plane['freqs'][None]
+
+
+def freq_stack(parsed_list, rans_planes):
+    """Every rANS table of a batch, chunk by chunk and plane by plane:
+    ``(freqs (U, 256) uint16, tbase (B + 1,) int)``, chunk b's tables
+    being ``freqs[tbase[b]:tbase[b + 1]]``."""
+    tabs = [plane_tables(parsed, p) for parsed in parsed_list
+            for p in rans_planes]
+    per_chunk = np.array([len(t) for t in tabs], dtype=np.int64).reshape(
+        len(parsed_list), len(rans_planes)).sum(1)
+    tbase = np.concatenate([[0], np.cumsum(per_chunk)])
+    freqs = (np.concatenate(tabs) if tabs
+             else np.zeros((0, 256), dtype=np.uint16))
+    return freqs, tbase
+
+
+def segment_tables(parsed_list, rans_planes, slots, tbase, NG):
+    """(NG, 32) int32: each staged segment row's table in
+    :func:`freq_stack`'s stack, -1 for a row without a segment. The
+    segment rows are the first chunk's (a batch's geometry is uniform),
+    each chunk's plane indexes its own tables by segment (``tidx``)."""
+    first = parsed_list[0]
+    segs = [s for g in first['groups'] for s in g['segments']]
+    seg_p = np.array([p for p, _s, _n in segs])
+    seg_i = np.array([start // first['seg'] for _p, start, _n in segs])
+    rows_of = [np.flatnonzero(seg_p == p) for p in rans_planes]
+    G = slots.shape[1]
+    out = np.full((NG, GROUP_ROWS), -1, dtype=np.int32)
+    flat = np.full(G * GROUP_ROWS, -1, dtype=np.int32)
+    for b, parsed in enumerate(parsed_list):
+        base = tbase[b]
+        for p, rows in zip(rans_planes, rows_of):
+            tidx = parsed['planes'][p].get('tidx')
+            flat[rows] = base if tidx is None else base + tidx[seg_i[rows]]
+            base += len(plane_tables(parsed, p))
+        out[slots[b]] = flat.reshape(G, GROUP_ROWS)
+    return out
+
+
+def host_tables(parsed_list, slots, NG):
+    """K1's tables packed on the host (:func:`pack_device_tables`), for
+    batches with a table off the 8-slot grid: ``(lookup, dense_pk
+    (NG, 32, 256) int32, fixups)``. ``lookup`` holds octet rows
+    (NG, 32, 128) where every table has them (``fixups`` 0), else the
+    coarse tables (NG, 32, 256) with ``fixups`` 1, or 2 when some 16-slot
+    bucket holds three symbols."""
+    coarse_pk = np.zeros((NG, GROUP_ROWS, 2, LANES), dtype=np.int32)
+    octet_pk = np.zeros((NG, GROUP_ROWS, LANES), dtype=np.int32)
+    dense_pk = np.zeros((NG, GROUP_ROWS, 2, LANES), dtype=np.int32)
+    table_cache = {}
+    needs_fixup2 = False
+    octet_ok = True
+    for b, parsed in enumerate(parsed_list):
+        for gi, g in enumerate(parsed['groups']):
+            i = slots[b, gi]
+            for r, (p, start, _n) in enumerate(g['segments']):
+                # Identical tables across chunks (the common case) pack
+                # once.
+                table = ans_seg_freqs(parsed, p, start)
+                key = table.tobytes()
+                if key not in table_cache:
+                    table_cache[key] = pack_device_tables(table)
+                coarse_pk[i, r], dense_pk[i, r], n2, orow = table_cache[key]
+                needs_fixup2 = needs_fixup2 or n2
+                if orow is None:
+                    octet_ok = False
+                else:
+                    octet_pk[i, r] = orow
+    dense_pk = dense_pk.reshape(NG, GROUP_ROWS, 256)
+    if octet_ok:
+        return octet_pk, dense_pk, 0
+    return (coarse_pk.reshape(NG, GROUP_ROWS, 256), dense_pk,
+            2 if needs_fixup2 else 1)
 
 
 def _read_payload(reader, idx):

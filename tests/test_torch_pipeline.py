@@ -8,6 +8,7 @@ fuse8 route; ``test_torch_generic.py`` holds the other layouts), and
 every frozen ans file decodes through the port.
 """
 
+import collections
 import os
 import subprocess
 import sys
@@ -25,9 +26,12 @@ from mtscomp_tpu.parallel.pipeline import (  # noqa: E402
     DeviceBatchDecoder as JaxDecoder, _read_payload)
 
 import mtscomp_tpu_torch as mt  # noqa: E402
+from mtscomp_tpu_torch.codec import ans as ans_mod  # noqa: E402
 from mtscomp_tpu_torch.device import resolve_device  # noqa: E402
 from mtscomp_tpu_torch.parallel import pipeline as tp  # noqa: E402
+from mtscomp_tpu_torch.parallel.mesh import chunk_mesh  # noqa: E402
 
+from chip_smoke import foreign_quantizer, heavy_tailed_steps  # noqa: E402
 from conftest import make_signal, to_int16, write_arr  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -127,6 +131,123 @@ def test_decode_batch_matches_jax_and_source(tmp_path_, monkeypatch, name):
         r.close()
 
 
+# --- K1's tables: built from the frequency tables, or packed on the host ---
+
+def _counted(monkeypatch):
+    """The pipeline's counters of one test, whatever tracing says."""
+    seen = collections.Counter()
+    monkeypatch.setattr(tp, 'count',
+                        lambda name, n=1: seen.update({name: n}))
+    return seen
+
+
+def _rans_planes(parsed):
+    return [p for p, m in enumerate(parsed[0]['modes'])
+            if m == ans_mod.MODE_RANS]
+
+
+#: The fuse8 layouts (walks of small steps: one rANS plane), and walks of
+#: heavy-tailed steps on the generic route (both byte planes rANS).
+TABLE_LAYOUTS = [('ragged129', 'fuse8'), ('uniform128', 'fuse8'),
+                 ('wide40_uint16', 'fuse8'), ('ragged129', 'generic'),
+                 ('uniform128', 'generic')]
+
+
+@pytest.mark.parametrize('width', [None, 2])
+@pytest.mark.parametrize('name,route', TABLE_LAYOUTS)
+def test_pack_builds_k1_tables_from_freqs(tmp_path_, monkeypatch, name,
+                                          route, width):
+    """An 8-aligned batch (every batch this codec writes) stages K1's
+    octet and dense tables built from the containers' frequency tables:
+    the host packer's rows bit for bit, every table counted on the card,
+    and the batch decodes to the source, with and without a mesh."""
+    arr, r, T = _file(tmp_path_, name, monkeypatch)
+    if route == 'generic':
+        r.close()
+        rng = np.random.default_rng(T)
+        arr = np.cumsum(heavy_tailed_steps(rng, arr.shape),
+                        axis=0).astype(np.int16)
+        r = _compressed(tmp_path_, arr, T, ans_seg_log2=12)
+    seen = _counted(monkeypatch)
+    try:
+        parsed = _parsed(r)
+        dec = tp.DeviceBatchDecoder(r, 'cpu')
+        assert dec.supported(parsed, T)
+        mesh = None if width is None else chunk_mesh(['cpu'] * width)
+        fn, staged = dec.pack(parsed, T, mesh=mesh)
+    finally:
+        r.close()
+    assert fn.func is (tp._decode_fuse8 if route == 'fuse8'
+                       else tp._decode_generic)
+    planes = _rans_planes(parsed)
+    assert len(planes) == (1 if route == 'fuse8' else 2)
+    freqs, tbase = tp.freq_stack(parsed, planes)
+    assert tbase[-1] == len(freqs) > 0
+    assert seen == {'decode.tables_on_card': len(freqs)}
+    shards = [staged] if mesh is None else staged
+    assert len(shards) == (width or 1)
+    B, G = len(parsed), len(parsed[0]['groups'])
+    slots = tp.group_slots(B, G, B // len(shards), dec.last_tail)
+    lookup, dense, fixups = tp.host_tables(parsed, slots, B * G)
+    assert fixups == 0
+    for got, want in ((torch.cat([a[2] for a in shards]), lookup),
+                      (torch.cat([a[3] for a in shards]), dense)):
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+    outs, used = zip(*(fn(*a) for a in shards))
+    tp.check_words_used(parsed, torch.cat(used))
+    got = torch.cat(outs).numpy().view(arr.dtype)
+    assert np.array_equal(got.reshape(arr.shape), arr)
+
+
+@pytest.mark.parametrize('seed', range(4))
+def test_pack_packs_on_the_host_for_a_foreign_table(tmp_path_, monkeypatch,
+                                                    seed):
+    """A batch holding one table off the 8-slot grid (another writer's
+    quantizer at unit granularity, one table for its plane) beside this
+    writer's chunk packs every table on the host, K1 reading coarse
+    rows, and decodes to both sources."""
+    C, T = 40, 300
+    rng = np.random.default_rng(seed)
+    readers, arrs = [], []
+    for name, opts in (('own', {}), ('foreign', {'ans_table_mode': 'plane'})):
+        arr = np.cumsum(rng.normal(0, 5, size=(T, C)), axis=0).astype(
+            np.int16)
+        path = write_arr(tmp_path_ / (name + '.bin'), arr)
+        cbin, ch = tmp_path_ / (name + '.cbin'), tmp_path_ / (name + '.ch')
+        with monkeypatch.context() as m:
+            if name == 'foreign':
+                m.setattr(ans_mod, '_quantize_rows', foreign_quantizer(16))
+            mt.compress(path, cbin, ch, sample_rate=float(T), n_channels=C,
+                        dtype='int16', algorithm='ans', quiet=True,
+                        check_after_compress=False, device='none', **opts)
+        readers.append(mt.decompress(cbin, ch, device='cpu', quiet=True))
+        arrs.append(arr)
+    seen = _counted(monkeypatch)
+    try:
+        parsed = [rd.codec.parse(tp._read_payload(rd, 0)) for rd in readers]
+        planes = _rans_planes(parsed)
+        foreign = tp.plane_tables(parsed[1], planes[0])
+        assert len(foreign) == 1 and np.any(foreign & 7)
+        assert not np.any(tp.freq_stack(parsed[:1], planes)[0] & 7)
+        dec = tp.DeviceBatchDecoder(readers[0], 'cpu')
+        assert dec.supported(parsed, T)
+        fn, args = dec.pack(parsed, T)
+    finally:
+        for rd in readers:
+            rd.close()
+    n_tables = len(tp.freq_stack(parsed, planes)[0])
+    assert seen == {'decode.tables_on_host': n_tables}
+    fixups = (fn.keywords['fixups'] if 'fixups' in fn.keywords
+              else fn.keywords['lay'].fixups)
+    assert fixups in (1, 2)
+    NG = len(parsed) * len(parsed[0]['groups'])
+    assert args[2].shape == (NG, 32, 256)
+    out, used = fn(*args)
+    tp.check_words_used(parsed, used)
+    assert np.array_equal(out.numpy(), np.stack(arrs))
+
+
 @pytest.mark.parametrize('name', ['ragged129', 'uniform128'])
 def test_dropped_word_fails_the_audit(tmp_path_, monkeypatch, name):
     _arr, r, T = _file(tmp_path_, name, monkeypatch)
@@ -214,9 +335,10 @@ def test_reader_entry_points(tmp_path_, monkeypatch, name):
         assert np.array_equal(rp[5:T + 7, 2:9], arr[5:T + 7, 2:9])
         counts = mt.launch_counts()
         assert counts['host_fallback_chunks'] == 0
-        # CPU decodes run the twins: no kernel launch is counted (17
-        # kernel forms, the int64 scans among them, and 2 host counters).
-        assert len(counts) == 19
+        # CPU decodes run the twins: no kernel launch is counted (18
+        # kernel forms, the int64 scans and the table builder among them,
+        # and 2 host counters).
+        assert len(counts) == 20
         assert not any(counts.values())
     finally:
         rp.close()

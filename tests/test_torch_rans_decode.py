@@ -1,10 +1,12 @@
-"""PyTorch port, K1: the grouped rANS decode and its host-side tables.
+"""PyTorch port, K1: the grouped rANS decode and its tables.
 
 The port's plain twin of the decode kernel (what ``decode_groups`` runs
 for CPU tensors) is held, bit for bit, against the JAX package's Pallas
 kernel in interpret mode and against the normative coder, on groups
 packed from real containers. The re-housed table packer is held against
-the JAX package's for every table those containers carry.
+the JAX package's for every table those containers carry, and the
+table builder's twin (``decode_tables_ref``, what ``decode_tables`` runs
+for CPU tensors) against the packer, row by row.
 """
 
 import functools
@@ -22,11 +24,16 @@ from mtscomp_tpu.ops import pallas_rans  # noqa: E402
 from mtscomp_tpu.parallel.pipeline import (  # noqa: E402
     DeviceBatchDecoder as JaxDecoder, _read_payload)
 
+import mtscomp_tpu_torch as mt  # noqa: E402
+from mtscomp_tpu_torch.codec.ans import MODE_RANS as PORT_MODE_RANS  # noqa
+from mtscomp_tpu_torch.models import rans as port_rans  # noqa: E402
 from mtscomp_tpu_torch.ops import tables  # noqa: E402
 from mtscomp_tpu_torch.ops.rans_decode import (  # noqa: E402
-    decode_groups, decode_groups_coarse, decode_groups_ref)
+    decode_groups, decode_groups_coarse, decode_groups_ref, decode_tables,
+    decode_tables_ref)
 from mtscomp_tpu_torch.parallel.pipeline import (  # noqa: E402
-    DeviceBatchDecoder, args_from_jax_pack)
+    DeviceBatchDecoder, _read_payload as port_read_payload,
+    args_from_jax_pack, freq_stack)
 
 from chip_smoke import (  # noqa: E402
     EDGE_CASES, REGION_ENDS, edge_groups, edge_k1_inputs)
@@ -296,3 +303,152 @@ def test_decode_twins_edge_cases(case, region_end, form):
     for n, group in enumerate(decoded):
         for r, row in enumerate(group):
             assert np.array_equal(syms[n, r, :row.size].numpy(), row)
+
+
+# --- the table builder (decode_tables) ---------------------------------------
+
+def _built_rows(stack, rows):
+    """``decode_tables`` on CPU tensors (the twin) of a (U, 256) table
+    stack and an (N, 32) row index, as numpy."""
+    octet, dense = decode_tables(
+        torch.from_numpy(np.ascontiguousarray(stack, np.uint16).view(
+            np.int16)), torch.from_numpy(np.asarray(rows, np.int32)))
+    return octet.numpy(), dense.numpy()
+
+
+def _assert_rows_match_packer(stack):
+    """Every table of ``stack`` built in a row (shuffled, with rows of no
+    segment between them) equals ``pack_device_tables``' octet and dense
+    rows bit for bit; rows of -1 stay zero."""
+    U = len(stack)
+    order = np.random.default_rng(U).permutation(U)
+    flat = np.full(-(-(2 * U) // 32) * 32, -1, np.int32)
+    flat[::2][:U] = order
+    rows = flat.reshape(-1, 32)
+    octet, dense = _built_rows(stack, rows)
+    assert octet.dtype == dense.dtype == np.int32
+    assert octet.shape == rows.shape + (128,)
+    assert dense.shape == rows.shape + (256,)
+    for (n, r), u in np.ndenumerate(rows):
+        if u < 0:
+            assert not octet[n, r].any() and not dense[n, r].any()
+            continue
+        _c, d, _n2, o = tables.pack_device_tables(stack[u])
+        assert o is not None, 'table %d is not 8-aligned' % u
+        assert np.array_equal(dense[n, r], d.reshape(-1)), u
+        assert np.array_equal(octet[n, r], o), u
+
+
+def _recording_tables(tmp_path, kind):
+    """Every frequency table of a small recording written by the port: a
+    385-channel walk kept modulo 2**16, of small steps for ``'ap'`` (one
+    coded byte plane) and of steps large enough to code both planes for
+    ``'lfp'``."""
+    rng = np.random.default_rng(5)
+    C, T = 385, 1250
+    # Channels of unlike step sizes, so that segments of a plane differ.
+    std = rng.uniform(1, 12, size=C) if kind == 'ap' else rng.uniform(
+        3, 40, size=C)
+    steps = rng.normal(0, 1, size=(2 * T, C)) * std
+    arr = (np.cumsum(steps, axis=0).astype(np.int64) % 65536).astype(
+        np.uint16).view(np.int16)
+    path = write_arr(tmp_path / (kind + '.bin'), arr)
+    cbin, ch = tmp_path / (kind + '.cbin'), tmp_path / (kind + '.ch')
+    mt.compress(path, cbin, ch, sample_rate=float(T), n_channels=C,
+                dtype='int16', algorithm='ans', quiet=True,
+                check_after_compress=False, device='none')
+    r = mt.decompress(cbin, ch, device='none', quiet=True)
+    try:
+        parsed = [r.codec.parse(port_read_payload(r, i))
+                  for i in range(r.n_chunks)]
+    finally:
+        r.close()
+    planes = [p for p, m in enumerate(parsed[0]['modes'])
+              if m == PORT_MODE_RANS]
+    assert len(planes) == (1 if kind == 'ap' else 2)
+    return freq_stack(parsed, planes)[0]
+
+
+@pytest.mark.parametrize('kind', ['ap', 'lfp'])
+def test_decode_tables_match_packer_on_recordings(tmp_path_, kind):
+    """Every table an AP-like and an LFP-like recording written by the
+    port carries."""
+    stack = _recording_tables(tmp_path_, kind)
+    assert len(stack) > 2
+    _assert_rows_match_packer(stack)
+
+
+@pytest.mark.parametrize('seed', range(4))
+def test_decode_tables_match_packer_on_random_tables(seed):
+    """8-aligned tables of random alphabets, flat and skewed, from the
+    writer's quantizer."""
+    rng = np.random.default_rng(seed)
+    stack = []
+    for _ in range(40):
+        n_sym = int(rng.integers(2, 257))
+        alpha = float(rng.choice([0.05, 1.0, 20.0]))
+        hist = np.zeros(256, np.int64)
+        sym = rng.choice(256, size=n_sym, replace=False)
+        hist[sym] = rng.multinomial(5000, rng.dirichlet(
+            np.full(n_sym, alpha))) + 1
+        stack.append(port_rans.quantize_freqs(hist))
+    _assert_rows_match_packer(np.stack(stack).astype(np.uint16))
+
+
+def _edge_table(name):
+    f = np.zeros(256, np.int64)
+    if name == 'one_symbol':
+        f[200] = 4096
+    elif name == 'all_256':
+        f[:] = 16
+    elif name == 'last_symbol_8':
+        f[0], f[255] = 4088, 8
+    elif name == 'first_and_last_8':
+        f[0], f[128], f[255] = 8, 4080, 8
+    return f
+
+
+@pytest.mark.parametrize('name', ['one_symbol', 'all_256', 'last_symbol_8',
+                                  'first_and_last_8'])
+def test_decode_tables_edge_tables(name):
+    """One symbol of 4096 (its frequency reaches the symbol's bits of
+    the dense entry, as in the packer), all 256 symbols present, and
+    8-slot symbols at the ends of the alphabet."""
+    _assert_rows_match_packer(_edge_table(name)[None].astype(np.uint16))
+
+
+def test_decode_tables_rows_without_segment_and_bad_inputs():
+    """Rows of -1, and of an index outside the stack, are zeros; an
+    empty stack builds all-zero rows; wrong dtypes and shapes raise."""
+    stack = np.stack([_edge_table('all_256'),
+                      _edge_table('last_symbol_8')]).astype(np.uint16)
+    rows = np.full((2, 32), -1, np.int32)
+    rows[0, 3], rows[1, 0], rows[1, 1] = 1, 0, 2
+    octet, dense = _built_rows(stack, rows)
+    live = np.zeros((2, 32), bool)
+    live[0, 3] = live[1, 0] = True
+    assert not octet[~live].any() and not dense[~live].any()
+    assert octet[live].all(axis=1).any() and dense[live].any()
+    octet, dense = _built_rows(np.zeros((0, 256), np.uint16), rows)
+    assert not octet.any() and not dense.any()
+    f = torch.zeros((2, 256), dtype=torch.int16)
+    r = torch.zeros((1, 32), dtype=torch.int32)
+    for bad_f, bad_r, key in [(f.to(torch.int32), r, 'freqs'),
+                              (f[:, :128], r, 'freqs'),
+                              (f, r.to(torch.int64), 'rows'),
+                              (f, r[:, :16], 'rows')]:
+        with pytest.raises(ValueError, match=key):
+            decode_tables(bad_f, bad_r)
+
+
+def test_decode_tables_twin_equals_wrapper_on_cpu():
+    """For CPU tensors the wrapper is the twin (no launch is counted)."""
+    stack = torch.from_numpy(np.stack(
+        [_edge_table('all_256'), _edge_table('one_symbol')]).astype(
+            np.int16))
+    rows = torch.tensor([[0, 1, -1] + [0] * 29], dtype=torch.int32)
+    before = dict(mt.launch_counts())
+    got = decode_tables(stack, rows)
+    want = decode_tables_ref(stack, rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert mt.launch_counts() == before

@@ -87,7 +87,7 @@ def _staged_decode_rate(readers, T, arrs, reps, inner=1):
     full = [i for i in range(r0.n_chunks) if bounds[i + 1] - bounds[i] == T]
     dec = DeviceBatchDecoder(r0, r0.device)
     total_ms, nbytes, exact, n_batches, widest = 0.0, 0, True, 0, 0
-    for ids, parsed in _uniform_batches(readers, full, T, dec):
+    for ids, parsed, _ok in _uniform_batches(readers, full, T, dec):
         if not dec.supported(parsed, T):
             return None, False, 0, 0
         fn, args = dec.pack(parsed, T)

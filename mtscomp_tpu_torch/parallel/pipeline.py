@@ -697,51 +697,47 @@ class DeviceBatchDecoder:
         Raises IOError when any group's stream-word consumption differs
         from its container's stored length (corrupt payload).
         """
-        with phase('decode.pack'):
-            fn, args = self.pack(parsed_list, n_samples)
-        with phase('decode.device'):
-            out, used = fn(*args)
-        with phase('decode.fetch'):
-            # Fetches the (groups,) word counts: the call's one wait for
-            # the device.
-            check_words_used(parsed_list, used)
-        return out
+        return self._decode_shards(parsed_list, n_samples)[0]
 
-    def decode_batch(self, parsed_list, n_samples, mesh=None):
-        """(B, n_samples, n_channels) decoded ndarray in the coding dtype.
-
-        With ``mesh`` (:func:`~.mesh.chunk_mesh`), the chunk batch is
-        sharded across the mesh's devices (:meth:`pack`): each shard's
-        decode is launched on its own device, so that distinct cards
-        overlap, then every shard's word counts are audited and its
-        samples fetched into their rows of the result. Raises ValueError
-        when the mesh does not divide a batch with rANS groups.
-        """
-        if mesh_devices(mesh) is None:
-            return self.decode_tensor(parsed_list, n_samples).cpu().numpy(
-                ).view(self.dtype)
+    def _decode_shards(self, parsed_list, n_samples, mesh=None):
+        """The batch decoded across ``mesh`` (:meth:`pack`; one shard
+        without) and audited: each shard's (b, n_samples, C) samples on
+        its device, in batch order."""
         with phase('decode.pack'):
             fn, shards = self.pack(parsed_list, n_samples, mesh=mesh)
+        if mesh_devices(mesh) is None:
+            shards = [shards]
         with phase('decode.device'):
             results = []
             for args in shards:
                 with on_device(args[0].device):
                     results.append(fn(*args))
         with phase('decode.fetch'):
-            check_words_used(parsed_list, np.concatenate(
-                [to_host(used) for _, used in results]))
-            out = np.empty((len(parsed_list), n_samples,
-                            self.reader.n_channels), self.dtype)
-            bits = out.view(_BITS[self.dtype.itemsize][1])
+            # Fetches the word counts: the call's one wait for the cards.
+            used = [u for _, u in results]
+            check_words_used(parsed_list, used[0] if len(used) == 1 else
+                             np.concatenate([to_host(u) for u in used]))
+        return [samples for samples, _ in results]
+
+    def decode_batch(self, parsed_list, n_samples, mesh=None):
+        """(B, n_samples, n_channels) decoded ndarray in the coding dtype.
+
+        With ``mesh`` (:func:`~.mesh.chunk_mesh`), the batch is sharded
+        across the mesh's devices (:meth:`pack`) and every shard launched,
+        so that distinct cards overlap, before all are audited and each is
+        fetched through its card's staging ring (:class:`_HostRows`).
+        Raises ValueError when the mesh does not divide a batch with rANS
+        groups.
+        """
+        B, C = len(parsed_list), self.reader.n_channels
+        shards = self._decode_shards(parsed_list, n_samples, mesh)
+        with _fetch_pool(self.reader) as pool:
+            out = _HostRows((B * n_samples, C), self.dtype, pool)
             pos = 0
-            for samples, _used in results:
-                if samples.device.type != 'cpu':
-                    count('transfer.d2h_bytes',
-                          samples.numel() * samples.element_size())
-                torch.from_numpy(bits[pos:pos + samples.shape[0]]).copy_(
-                    samples)
-                pos += samples.shape[0]
-        return out
+            for samples in shards:
+                out.put(samples.reshape(-1, C), pos)
+                pos += samples.shape[0] * n_samples
+        return out.out.reshape(B, n_samples, C)
 
     def pack(self, parsed_list, n_samples, mesh=None):
         """Stage a batch: ``(fn, tensors)`` with ``fn(*tensors)`` returning
@@ -1203,33 +1199,83 @@ def _fetch_ring(device):
     return ring
 
 
-def _uniform_batches(readers, chunk_ids, n_samples, dec, multiple=1):
-    """Cut a run into batches of consecutive chunks that ``supported()``
-    accepts together, each of at most :func:`batch_limit` chunks over
-    all ``readers`` (several for a multi-probe decode: every batch then
-    holds the same chunks of each). Yields ``(chunk ids, parsed chunks)``
-    as each batch closes, so only one batch's payloads are held at a
-    time; the parsed chunks are reader-major, each reader's in id order.
-    A batch cut by the bound holds a multiple of ``multiple`` ids (at
-    least ``multiple``, beyond the bound if need be): what a mesh needs
-    to divide it.
+def _fetch_pool(reader):
+    """``n_threads`` threads for a bulk decode's host copies."""
+    return ThreadPoolExecutor(max(1, int(reader.config.n_threads)),
+                              thread_name_prefix='mts-fetch')
+
+
+class _HostRows:
+    """A bulk decode's host result: the one way a decoded block reaches
+    host memory. :meth:`put` writes a card's block through its device's
+    staging ring (:func:`_fetch_ring`; the host copies on ``pool``), a
+    host block (a CPU device's tensor, the host codec's ndarray) by NumPy
+    assignment. :attr:`out` is the caller's array, else allocated at the
+    first block that needs it; a host block that spans all of ``shape``'s
+    rows becomes it as it is."""
+
+    def __init__(self, shape, dtype, pool, out=None):
+        self.shape, self.dtype, self.pool, self.out = shape, dtype, pool, out
+
+    def put(self, block, pos):
+        """Write the (n, C) ``block`` into rows [pos, pos + n)."""
+        rows = slice(pos, pos + len(block))
+        ring = _fetch_ring(block.device) if torch.is_tensor(block) else None
+        if ring is not None:
+            if self.out is None:
+                with phase('decode.assemble'):
+                    self.out = np.empty(self.shape, self.dtype)
+            with phase('decode.to_host'):
+                ring.fetch(block, self.out[rows], self.pool)
+            return
+        if torch.is_tensor(block):
+            with phase('decode.to_host'):
+                block = to_host(block).view(self.dtype)
+        if self.out is None and len(block) == self.shape[0]:
+            self.out = block
+            return
+        with phase('decode.assemble'):
+            if self.out is None:
+                self.out = np.empty(self.shape, self.dtype)
+            self.out[rows] = block
+
+
+def _uniform_batches(readers, chunk_ids, n_samples, dec, multiple=1,
+                     payloads=None):
+    """Parse a run's chunks and cut it into batches of consecutive
+    chunks, each of at most :func:`batch_limit` chunks over all
+    ``readers`` (several for a multi-probe decode: every batch then holds
+    the same chunks of each): the one place that judges (``supported()``)
+    which chunks decode together on the card. A batch's first column (its
+    chunk of every reader) is judged alone, each later column once,
+    against the batch's first chunk; a declined batch is one column.
+    Yields ``(chunk ids, parsed chunks reader-major, ok)`` as each batch
+    closes, ``ok`` whether the card takes it. A batch cut by the bound
+    holds a multiple of ``multiple`` ids (at least ``multiple``, beyond
+    the bound if need be): what a mesh needs to divide it. ``payloads``,
+    when a list, gets every payload as it is read.
     """
     limit = max(1, batch_limit(readers[0], n_samples) // len(readers))
     limit = max(multiple, limit - limit % multiple)
-    ids, cols = [], []
+    ids, cols, ok = [], [], False
 
     def batch():
-        return ids, [col[k] for k in range(len(readers)) for col in cols]
+        return ids, [col[k] for k in range(len(readers)) for col in cols], ok
 
     for idx in chunk_ids:
         with phase('decode.parse'):
-            col = [r.codec.parse(_read_payload(r, idx)) for r in readers]
-        if ids and (len(ids) >= limit or not dec.supported(
-                [cols[0][0]] + col, n_samples)):
+            raw = [_read_payload(r, idx) for r in readers]
+            col = [r.codec.parse(p) for r, p in zip(readers, raw)]
+        if payloads is not None:
+            payloads.extend(raw)
+        if ok and len(ids) < limit and dec.supported([cols[0][0]] + col,
+                                                     n_samples):
+            ids.append(idx)
+            cols.append(col)
+            continue
+        if ids:
             yield batch()
-            ids, cols = [], []
-        ids.append(idx)
-        cols.append(col)
+        ids, cols, ok = [idx], [col], dec.supported(col, n_samples)
     if ids:
         yield batch()
 
@@ -1246,8 +1292,8 @@ def _decode_runs(reader, first_chunk, last_chunk, device):
     more chunks than :func:`batch_limit` allows, and a batch's staged
     tensors are dropped before the next is staged. Yields ``(row
     offset, block)``: a (n, C) device tensor in the coding dtype's bits,
-    or a host ndarray in the reader's dtype for batches that
-    ``supported()`` sends to the host codec.
+    or a host ndarray in the reader's dtype for batches that the card
+    declines.
     """
     global host_fallback_chunks
     bounds, offsets = reader.chunk_bounds, reader.chunk_offsets
@@ -1271,10 +1317,10 @@ def _decode_runs(reader, first_chunk, last_chunk, device):
     for run_ids, (ns, _desc) in runs:
         dec = DeviceBatchDecoder(reader, device) if ans else None
         batches = (_uniform_batches([reader], run_ids, ns, dec) if ans
-                   else [(run_ids, None)])
-        for chunk_ids, parsed in batches:
+                   else [(run_ids, None, False)])
+        for chunk_ids, parsed, ok in batches:
             n_span = len(chunk_ids) * ns
-            if parsed is not None and dec.supported(parsed, ns):
+            if ok:
                 block = dec.decode_tensor(parsed, ns).reshape(
                     n_span, reader.n_channels)
                 del parsed
@@ -1304,30 +1350,16 @@ def _torch_dtype(dtype):
                             ).dtype
 
 
-def _as_user_dtype(arr, reader):
-    """A fetched block (the coding dtype's bits, ``_BITS``) as the
-    reader's dtype: zero-copy views; only bitcast float files and
-    unsigned dtypes differ."""
-    code = np.dtype(getattr(reader, 'code_dtype', reader.dtype))
-    return arr.view(code).view(reader.dtype)
-
-
 def decompress_to_array(reader, first_chunk=0, last_chunk=None, out=None,
                         writable=True, device='cuda'):
     """Bulk-decode chunks [first, last] to one host ndarray via the GPU.
 
     Returns ``out`` if given (a ``(samples of the span, C)`` array of
     the reader's dtype, in any layout: NumPy's assignment semantics),
-    else a fresh C-ordered array allocated here; either is written once,
-    batch by batch. A block decoded on a card reaches it through the
-    device's pinned staging ring (:class:`StagingRing`, the copies into
-    the result spread over ``n_threads`` of the reader's configuration);
-    on a CPU device, and for a batch the host codec decodes, the block
-    is a host array that is copied, or, when it spans the whole range
-    and no ``out`` is given, returned as it is. ``writable`` has the JAX
-    package's meaning (``False`` allows a read-only result); the port's
-    result is always a writable array of its own, so both values return
-    the same.
+    else a fresh C-ordered array; either is written once, batch by batch
+    (:class:`_HostRows`). ``writable`` has the JAX package's meaning
+    (``False`` allows a read-only result); the port's result is always a
+    writable array of its own, so both values return the same.
     """
     last_chunk, total = _span(reader, first_chunk, last_chunk)
     shape = (total, reader.n_channels)
@@ -1339,38 +1371,13 @@ def decompress_to_array(reader, first_chunk=0, last_chunk=None, out=None,
                          % (reader.dtype, shape, first_chunk, last_chunk,
                             getattr(out, 'dtype', type(out).__name__),
                             getattr(out, 'shape', '')))
-    pool = None
-    try:
+    with _fetch_pool(reader) as pool:
+        res = _HostRows(shape, reader.dtype, pool, out)
         for pos, block in _decode_runs(reader, first_chunk, last_chunk,
                                        device):
-            ring = _fetch_ring(block.device) if torch.is_tensor(block) \
-                else None
-            if ring is not None:
-                if out is None:
-                    with phase('decode.assemble'):
-                        out = np.empty(shape, reader.dtype)
-                if pool is None:
-                    pool = ThreadPoolExecutor(
-                        max(1, int(reader.config.n_threads)),
-                        thread_name_prefix='mts-fetch')
-                with phase('decode.to_host'):
-                    ring.fetch(block, out[pos:pos + block.shape[0]], pool)
-                del block
-                continue
-            if torch.is_tensor(block):
-                with phase('decode.to_host'):
-                    block = _as_user_dtype(to_host(block), reader)
-            if out is None and block.shape[0] == total:
-                return block
-            with phase('decode.assemble'):
-                if out is None:
-                    out = np.empty(shape, reader.dtype)
-                out[pos:pos + block.shape[0]] = block
-                del block  # freed here, not at the next batch's fetch
-    finally:
-        if pool is not None:
-            pool.shutdown()
-    return out
+            res.put(block, pos)
+            del block  # freed here, not at the next batch's fetch
+    return res.out
 
 
 def decompress_to_tensor(reader, first_chunk=0, last_chunk=None,
@@ -1421,22 +1428,24 @@ class DeviceChunkCache:
 
     def _chunk(self, idx):
         """Chunk ``idx`` decoded on the device, or None for a chunk the
-        batched decode declines (a foreign byte order): decided by
-        ``supported()`` before anything is staged. Every error of the
-        decode itself propagates."""
+        batched decode declines (a foreign byte order): judged by
+        :func:`_uniform_batches`, as a bulk read's batch is, before
+        anything is staged. Every error of the decode itself
+        propagates."""
         if idx in self._cache:
             self._cache.move_to_end(idx)
             return self._cache[idx][0]
         r = self.reader
         ns = r.chunk_bounds[idx + 1] - r.chunk_bounds[idx]
-        with phase('decode.parse'):
-            payload = _read_payload(r, idx)
-            parsed = [r.codec.parse(payload)]
         dec = DeviceBatchDecoder(r, r.device)
-        if not dec.supported(parsed, ns):
+        payload = []
+        (_, parsed, ok), = _uniform_batches([r], [idx], ns, dec,
+                                            payloads=payload)
+        if not ok:
             return None
         out = dec.decode_tensor(parsed, ns)[0]      # (ns, C), stays put
-        self._cache[idx] = out, _chunk_key(r, idx, payload)
+        # Keyed on the bytes decoded, not on a second read of the file.
+        self._cache[idx] = out, _chunk_key(r, idx, payload[0])
         while len(self._cache) > self.capacity:
             self._cache.popitem(last=False)
         return out
@@ -1478,34 +1487,32 @@ class DeviceChunkCache:
         # A row slice of a cached chunk is a view of it: ``contiguous``
         # and ``cpu`` copy the window alone, into host memory the caller
         # owns. On the CPU device ``cpu`` copies nothing, so a one-chunk
-        # window is cloned: never a view of a cached tensor.
+        # window is cloned: never a view of a cached tensor. A window is
+        # small and waited for: no staging ring and thread handoff here.
         if dev.device.type == 'cpu':
             win = dev.clone() if len(parts) == 1 else dev
         else:
             win = dev.contiguous()
-        return _as_user_dtype(to_host(win), r)
+        return to_host(win).view(r.dtype)
 
 
 def decompress_multi(readers, mesh=None, first_chunk=0, last_chunk=None):
     """Decode the same chunk range of several recordings (multi-probe).
 
-    The probes' chunk batches are concatenated and decoded in one device
-    call on the first reader's device, or sharded across ``mesh``
-    (:func:`~.mesh.chunk_mesh`: N probes chunk-parallel across cards,
-    :meth:`DeviceBatchDecoder.decode_batch`). All probes must share
-    geometry (channels, chunk sizes, dtype, plane modes). Returns a list
-    of ``(n_samples, n_channels)`` arrays, one per reader. A range whose
-    merged batch would exceed :func:`batch_limit` is cut by chunk index:
-    each call decodes the same few chunks of every probe, and with a
-    mesh a count of chunks that keeps the batch a multiple of its width
-    whenever the whole range is one. A range that is not raises the
-    decode's ValueError, as the JAX package's assertion does; a batch cut
-    where the plane modes change is not sharded when the mesh does not
-    divide it.
+    The probes' chunks are decoded together, batch by batch, by
+    :meth:`DeviceBatchDecoder.decode_batch` on the first reader's device
+    or sharded across ``mesh`` (:func:`~.mesh.chunk_mesh`), and put into
+    one ``(n_samples, n_channels)`` array per reader (:class:`_HostRows`).
+    All probes must share geometry (channels, chunk sizes, dtype, plane
+    modes). A batch holds the same few chunks of every probe, at most
+    :func:`batch_limit`; with a mesh, a multiple of its width whenever the
+    whole range is one. A range that is not raises the decode's
+    ValueError, as the JAX package's assertion does; a batch cut where the
+    plane modes change is not sharded when the mesh does not divide it.
 
-    Falls back to per-reader ``to_array`` (:func:`decompress_to_array`
-    on each reader's own device, no mesh) when the batches cannot be
-    merged. ``mesh`` must be a mesh or None (TypeError).
+    Falls back to per-reader ``to_array`` (each reader's own device, no
+    mesh) when the probes cannot be merged, up front or at a batch the
+    card declines. ``mesh`` must be a mesh or None (TypeError).
     """
     assert readers
     devices = mesh_devices(mesh)
@@ -1516,8 +1523,7 @@ def decompress_multi(readers, mesh=None, first_chunk=0, last_chunk=None):
             "decompress_multi: invalid chunk range [%d, %d]"
             % (first_chunk, last))
     for k, r in enumerate(readers):
-        # One common chunk range per call is the contract (the batch is
-        # reshaped (n_readers, n_chunks*ns)).
+        # One common chunk range per call is the contract.
         if r.n_chunks <= last:
             raise ValueError(
                 "decompress_multi decodes one common chunk range, but "
@@ -1534,36 +1540,28 @@ def decompress_multi(readers, mesh=None, first_chunk=0, last_chunk=None):
     mergeable = (r0.algorithm == 'ans' and r0.device is not None and all(
         r.algorithm == 'ans' and decode_identity(r.cmeta) == ident0
         for r in readers))
-    ns = None
-    if mergeable:
-        sizes = {r.chunk_bounds[i + 1] - r.chunk_bounds[i]
-                 for r in readers for i in range(first_chunk, last + 1)}
-        mergeable = len(sizes) == 1
-        ns = sizes.pop()
-    if mergeable:
+    sizes = {r.chunk_bounds[i + 1] - r.chunk_bounds[i]
+             for r in readers for i in range(first_chunk, last + 1)}
+    if mergeable and len(sizes) == 1:
+        ns, = sizes
         dec = DeviceBatchDecoder(r0, r0.device)
         width = len(devices) if devices else 1
         whole = (len(readers) * n_chunks) % width == 0
-        outs = None
-        for ids, parsed in _uniform_batches(
+        outs = [_HostRows((n_chunks * ns, r.n_channels), r.dtype, None)
+                for r in readers]
+        for ids, parsed, ok in _uniform_batches(
                 readers, range(first_chunk, last + 1), ns, dec,
                 multiple=width // math.gcd(width, len(readers))):
-            if not dec.supported(parsed, ns):
+            if not ok:
                 break
             shard = mesh if len(parsed) % width == 0 or not whole else None
-            block = _as_user_dtype(dec.decode_batch(parsed, ns, mesh=shard),
-                                   r0).reshape(len(readers), len(ids) * ns, -1)
+            block = dec.decode_batch(parsed, ns, mesh=shard).reshape(
+                len(readers), len(ids) * ns, -1)
             del parsed
-            if len(ids) == n_chunks:
-                return list(block)
-            if outs is None:
-                outs = [np.empty((n_chunks * ns, r.n_channels), r.dtype)
-                        for r in readers]
-            row = (ids[0] - first_chunk) * ns
-            for out, rows in zip(outs, block):
-                out[row:row + len(ids) * ns] = rows
+            for out, r, rows in zip(outs, readers, block):
+                out.put(rows.view(r.dtype), (ids[0] - first_chunk) * ns)
         else:
-            return outs
+            return [o.out for o in outs]
     return [r.to_array(first_chunk, last) for r in readers]
 
 

@@ -331,15 +331,16 @@ from mtscomp_tpu_torch.parallel import pipeline as mt_pipeline  # noqa: E402
 
 @pytest.fixture
 def decode_calls(monkeypatch):
-    """Chunks per ``decode_tensor`` call of the port, in call order."""
+    """Chunks per device decode of the port (``_decode_shards``, which
+    ``decode_tensor`` and ``decode_batch`` call), in call order."""
     calls = []
-    real = mt_pipeline.DeviceBatchDecoder.decode_tensor
+    real = mt_pipeline.DeviceBatchDecoder._decode_shards
 
-    def spy(self, parsed_list, n_samples):
+    def spy(self, parsed_list, n_samples, mesh=None):
         calls.append(len(parsed_list))
-        return real(self, parsed_list, n_samples)
+        return real(self, parsed_list, n_samples, mesh)
 
-    monkeypatch.setattr(mt_pipeline.DeviceBatchDecoder, 'decode_tensor', spy)
+    monkeypatch.setattr(mt_pipeline.DeviceBatchDecoder, '_decode_shards', spy)
     return calls
 
 

@@ -1,12 +1,13 @@
-"""PyTorch port: the bulk read's staged fetch (``pipeline.StagingRing``).
+"""PyTorch port: the bulk decodes' staged fetch (``pipeline.StagingRing``).
 
-A block decoded on a card reaches ``decompress_to_array``'s result
-through a ring of pinned host slots: each slot's bytes are copied into
-their rows of the result on a thread pool, and a slot is reused only
-after that copy has ended. On the CPU the same schedule runs with plain
-host slots and a host tensor as the source (``StagingRing`` without a
-stream), held byte for byte against today's path of a CPU device (the
-block fetched, then copied or returned as it is).
+A block decoded on a card reaches the result of ``decompress_to_array``,
+``DeviceBatchDecoder.decode_batch`` or ``decompress_multi`` through a
+ring of pinned host slots (``pipeline._HostRows``): each slot's bytes are
+copied into their rows of the result on a thread pool, and a slot is
+reused only after that copy has ended. On the CPU the same schedule runs
+with plain host slots and a host tensor as the source (``StagingRing``
+without a stream), held byte for byte against the path of a CPU device
+(the block fetched, then copied or returned as it is).
 
 The tests marked ``chip`` need a CUDA card and skip without one; on a
 machine with a card they run with
@@ -24,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import mtscomp_tpu_torch as mt
 import mtscomp_tpu_torch.config as mt_config
 from mtscomp_tpu_torch.parallel import pipeline as tp
+from mtscomp_tpu_torch.parallel.mesh import chunk_mesh
 from mtscomp_tpu_torch.utils import trace
 
 #: Element dtypes a file may hold; floats are coded as their bits.
@@ -181,6 +183,109 @@ def test_to_array_through_the_ring_is_todays(tmp_path, monkeypatch, dtype,
         r.close()
 
 
+# --- decode_batch and decompress_multi through the ring -------------------
+
+def _decode_batch(readers, mesh):
+    """Every chunk of the one reader through ``decode_batch``, as rows."""
+    r = readers[0]
+    parsed = [r.codec.parse(tp._read_payload(r, i))
+              for i in range(r.n_chunks)]
+    out = tp.DeviceBatchDecoder(r, r.device).decode_batch(
+        parsed, r.chunk_bounds[1], mesh=mesh)
+    return [out.reshape(-1, r.n_channels)]
+
+
+BULK_CALLS = {'decode_batch': _decode_batch,
+              'multi': lambda readers, mesh: mt.decompress_multi(
+                  readers, mesh=mesh)}
+
+#: case -> (call, probes, chunks a probe, ``batch_chunks``, mesh width,
+#: probe 1's first chunk constant): ``decode_batch`` without a mesh and
+#: over two devices; ``decompress_multi`` in one batch, in several, over
+#: two devices whose shards each span two probes (3 probes x 2 chunks),
+#: and with a probe whose first chunk's plane modes differ from reader
+#: 0's (the merge declined: per-reader ``to_array``).
+BULK = {'decode_batch': ('decode_batch', 1, 4, 0, None, False),
+        'decode_batch_mesh2': ('decode_batch', 1, 4, 0, 2, False),
+        'multi_one_batch': ('multi', 2, 4, 0, None, False),
+        'multi_several_batches': ('multi', 2, 4, 2, None, False),
+        'multi_mesh2_shards_span_probes': ('multi', 3, 2, 0, 2, False),
+        'multi_first_chunk_differs': ('multi', 2, 4, 0, None, True)}
+
+
+def _probes(tmp_path, dtype, T, n_probes, n_chunks, differs=False, **kw):
+    """``n_probes`` sources of ``n_chunks`` chunks and their readers on
+    the CPU device; with ``differs``, probe 1's first chunk is
+    constant."""
+    arrs, readers = [], []
+    for p in range(n_probes):
+        arr = _source(dtype, n_chunks * T, seed=p)
+        if differs and p == 1:
+            arr[:T] = arr[0]
+        d = tmp_path / ('p%d' % p)
+        d.mkdir()
+        cbin, ch = _compressed(d, arr, T)
+        arrs.append(arr)
+        readers.append(mt.decompress(cbin, ch, device='cpu', quiet=True,
+                                     **kw))
+    return arrs, readers
+
+
+@pytest.mark.parametrize('case', sorted(BULK))
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_bulk_decodes_through_the_ring_are_todays(tmp_path, monkeypatch,
+                                                  dtype, case):
+    """``decode_batch`` and ``decompress_multi`` with their blocks sent
+    through a host ring give the bytes the CPU device's path gives and
+    the sources hold, in every result's shape and dtype."""
+    call, n_probes, n_chunks, batch, width, differs = BULK[case]
+    T = 11
+    arrs, readers = _probes(tmp_path, dtype, T, n_probes, n_chunks,
+                            differs, batch_chunks=batch, n_threads=3)
+    mesh = None if width is None else chunk_mesh(['cpu'] * width)
+    try:
+        today = BULK_CALLS[call](readers, mesh)
+        ring = _host_ring(monkeypatch, 3, 200)
+        got = BULK_CALLS[call](readers, mesh)
+        assert len(got) == len(today) == len(arrs)
+        for g, t, arr in zip(got, today, arrs):
+            assert g.shape == t.shape == arr.shape
+            assert g.dtype == t.dtype and g.flags.writeable
+            assert np.array_equal(_bits(g), _bits(t))
+            assert np.array_equal(_bits(g), _bits(arr))
+        assert not ring.lock.locked() and not _fetch_threads()
+    finally:
+        for r in readers:
+            r.close()
+
+
+@pytest.mark.parametrize('call', sorted(BULK_CALLS))
+def test_every_decoded_byte_is_staged(tmp_path, monkeypatch, call):
+    """Every byte ``decode_batch`` and ``decompress_multi`` decode
+    reaches the host through the ring (``transfer.d2h_staged_bytes``),
+    in one fetch under ``decode.to_host``: the one batch's, which
+    ``decompress_multi`` fetches through ``decode_batch``."""
+    T = 11
+    n_probes = 1 if call == 'decode_batch' else 2
+    arrs, readers = _probes(tmp_path, 'int16', T, n_probes, 4)
+    _host_ring(monkeypatch, 2, 64)
+    trace.enable_tracing()
+    try:
+        trace.reset_stats()
+        for got, arr in zip(BULK_CALLS[call](readers, None), arrs):
+            assert np.array_equal(got, arr)
+        counters = trace.counter_stats()
+        spans = {k: v[0] for k, v in trace.phase_stats().items()}
+    finally:
+        trace.enable_tracing(False)
+        for r in readers:
+            r.close()
+    assert counters.get('transfer.d2h_staged_bytes') == \
+        sum(a.nbytes for a in arrs)
+    assert 'transfer.d2h_bytes' not in counters
+    assert spans['decode.to_host'] == 1
+
+
 def _corrupt_chunk(cbin, ch, idx):
     """Flip a byte in the middle of chunk ``idx``'s payload."""
     r = mt.decompress(cbin, ch, device='none', quiet=True)
@@ -336,6 +441,39 @@ def test_card_staged_bytes_are_the_decoded_bytes(card_file):
     # once.
     assert spans['decode.to_host'] == spans['decode.pack'] >= 3, spans
     assert spans['decode.assemble'] == 1, spans
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize('call', ['decode_batch', 'decompress_multi'])
+def test_card_bulk_decodes_stage_every_byte(card_file, call):
+    """``decode_batch`` (six chunks, one batch) and ``decompress_multi``
+    (two readers of the file, chunks 0-5, batches of three chunks) fetch
+    every decoded byte through the card's ring."""
+    _card()
+    arr, (cbin, ch) = card_file
+    want = arr[:6 * CARD_T]
+    readers = [mt.decompress(cbin, ch, device='cuda', batch_chunks=3,
+                             quiet=True) for _ in range(2)]
+    trace.enable_tracing()
+    try:
+        trace.reset_stats()
+        if call == 'decode_batch':
+            r = readers[0]
+            parsed = [r.codec.parse(tp._read_payload(r, i))
+                      for i in range(6)]
+            got = [tp.DeviceBatchDecoder(r, r.device).decode_batch(
+                parsed, CARD_T).reshape(want.shape)]
+        else:
+            got = mt.decompress_multi(readers, last_chunk=5)
+        counters = trace.counter_stats()
+    finally:
+        trace.enable_tracing(False)
+        for r in readers:
+            r.close()
+    assert all(np.array_equal(g, want) for g in got)
+    nbytes = len(got) * want.nbytes
+    assert counters['transfer.d2h_staged_bytes'] == nbytes, counters
+    assert counters['transfer.d2h_bytes'] >= nbytes, counters
 
 
 @pytest.mark.chip

@@ -6,7 +6,7 @@ The twin of the JAX package's multi-probe tests (``tests/test_device.py``,
 the port (``device='cpu'``: the kernels' plain twins) and the JAX package
 (Pallas in interpret mode) give the same arrays, equal to the sources
 (tolerance 0); probes that must not merge fall back per reader; the
-ValueErrors are the reference's. A spy on ``decode_tensor`` shows which
+ValueErrors are the reference's. A spy on ``_decode_shards`` shows which
 calls merged.
 """
 
@@ -34,15 +34,16 @@ def _isolate(tmp_path, monkeypatch):
 
 @pytest.fixture
 def decode_calls(monkeypatch):
-    """Chunks per ``decode_tensor`` call of the port, in call order."""
+    """Chunks per device decode of the port (``_decode_shards``, which
+    ``decode_tensor`` and ``decode_batch`` call), in call order."""
     calls = []
-    real = tp.DeviceBatchDecoder.decode_tensor
+    real = tp.DeviceBatchDecoder._decode_shards
 
-    def spy(self, parsed_list, n_samples):
+    def spy(self, parsed_list, n_samples, mesh=None):
         calls.append(len(parsed_list))
-        return real(self, parsed_list, n_samples)
+        return real(self, parsed_list, n_samples, mesh)
 
-    monkeypatch.setattr(tp.DeviceBatchDecoder, 'decode_tensor', spy)
+    monkeypatch.setattr(tp.DeviceBatchDecoder, '_decode_shards', spy)
     return calls
 
 
@@ -58,7 +59,7 @@ def _smooth(probe):
 
 
 # name: (per-probe (source, compress options), merged chunks per
-# decode_tensor call of the port, None where the probes fall back, or
+# device decode of the port, None where the probes fall back, or
 # 'either' where the payloads' geometry decides: the segment length and
 # table mode are not decode identity, ``supported()`` settles it).
 CASES = {

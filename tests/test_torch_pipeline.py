@@ -534,3 +534,135 @@ def test_mixed_plane_modes_decode_in_mode_uniform_batches(monkeypatch):
         assert mt.launch_counts()['host_fallback_chunks'] == 0
     finally:
         rp.close()
+
+
+# --- which chunks decode together: judged once, in _uniform_batches --------
+
+def _port_files(tmp_path, arrs, T, stem='j'):
+    """Each source compressed by the port's host codec: (cbin, ch)."""
+    files = []
+    for p, arr in enumerate(arrs):
+        path = write_arr(tmp_path / ('%s%d.bin' % (stem, p)), arr)
+        cbin = tmp_path / ('%s%d.cbin' % (stem, p))
+        ch = tmp_path / ('%s%d.ch' % (stem, p))
+        mt.compress(path, cbin, ch, sample_rate=float(T),
+                    n_channels=arr.shape[1], dtype=str(arr.dtype),
+                    algorithm='ans', quiet=True, device='none',
+                    check_after_compress=False)
+        files.append((cbin, ch))
+    return files
+
+
+def _judgements(monkeypatch):
+    """Every ``supported()`` call's batch, in call order (the lists are
+    kept, so that the ids of their parsed chunks stay distinct)."""
+    calls = []
+    real = tp.DeviceBatchDecoder.supported
+
+    def spy(self, parsed_list, n_samples):
+        calls.append(list(parsed_list))
+        return real(self, parsed_list, n_samples)
+
+    monkeypatch.setattr(tp.DeviceBatchDecoder, 'supported', spy)
+    return calls
+
+
+def _walks(n_probes, T, n_chunks, C=12):
+    rng = np.random.default_rng(21)
+    return [np.cumsum(rng.normal(0, 6, size=(n_chunks * T, C)),
+                      axis=0).astype(np.int16) for _ in range(n_probes)]
+
+
+#: call -> (probes, columns judged): ``to_array`` in batches of 2, 2 and
+#: 1 chunks (``batch_chunks=2``), a window over chunks 1 and 2 of a
+#: fresh reader, ``decompress_multi`` of two probes in batches of 2, 2
+#: and 1 chunks a probe (``batch_chunks=4``).
+JUDGED = {'to_array': (1, 5), 'window': (1, 2), 'multi': (2, 5)}
+
+
+@pytest.mark.parametrize('call', sorted(JUDGED))
+def test_each_batch_is_judged_once(tmp_path_, monkeypatch, call):
+    """``supported()`` judges each column a batch adds once, a first
+    column alone and a later one with the batch's first chunk, and never
+    a finished batch again."""
+    import mtscomp_tpu_torch.config as mt_config
+    monkeypatch.setattr(mt_config, 'CONFIG_PATH', tmp_path_ / '.mtsport')
+    T = 200
+    n_probes, n_cols = JUDGED[call]
+    arrs = _walks(n_probes, T, 5)
+    readers = [mt.decompress(c, s, device='cpu', quiet=True,
+                             batch_chunks=2 * n_probes)
+               for c, s in _port_files(tmp_path_, arrs, T)]
+    calls = _judgements(monkeypatch)
+    try:
+        if call == 'to_array':
+            got, want = [readers[0].to_array()], arrs
+        elif call == 'window':
+            got, want = [readers[0][T + 7:2 * T + 9]], \
+                [arrs[0][T + 7:2 * T + 9]]
+        else:
+            got, want = mt.decompress_multi(readers), arrs
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+    finally:
+        for r in readers:
+            r.close()
+    assert len(calls) == n_cols
+    added = set()
+    for batch in calls:
+        assert len(batch) in (n_probes, n_probes + 1)
+        added.add(tuple(id(p) for p in batch[-n_probes:]))
+    assert len(added) == n_cols
+
+
+#: case -> what the card declines in a batch's first column alone: a
+#: one-chunk file in a foreign byte order (``to_array`` and a window), or
+#: probe 1's first chunk, whose plane modes differ from reader 0's
+#: (``decompress_multi`` of the whole range, and of chunk 0 alone).
+DECLINED = ('foreign_one_chunk', 'multi_first_chunk_differs',
+            'multi_first_chunk_differs_one_column')
+
+
+@pytest.mark.parametrize('case', DECLINED)
+def test_a_declined_first_column_goes_to_the_host(tmp_path_, monkeypatch,
+                                                  case):
+    """A batch whose first column the card declines alone decodes on the
+    host codec (counted), or, for probes, falls back per reader."""
+    import mtscomp_tpu_torch.config as mt_config
+    monkeypatch.setattr(mt_config, 'CONFIG_PATH', tmp_path_ / '.mtsport')
+    T = 200
+    decodes = []
+    real = tp.DeviceBatchDecoder._decode_shards
+
+    def spy(self, parsed_list, n_samples, mesh=None):
+        decodes.append(len(parsed_list))
+        return real(self, parsed_list, n_samples, mesh)
+
+    monkeypatch.setattr(tp.DeviceBatchDecoder, '_decode_shards', spy)
+    mt.reset_launch_counts()
+    if case == 'foreign_one_chunk':
+        arr = _walks(1, T, 1, C=6)[0].astype('>i2')
+        (cbin, ch), = _port_files(tmp_path_, [arr], T)
+        r = mt.decompress(cbin, ch, device='cpu', quiet=True)
+        try:
+            assert np.array_equal(r.to_array(), arr)
+            assert np.array_equal(r[3:150], arr[3:150])
+        finally:
+            r.close()
+        assert mt.launch_counts()['host_fallback_chunks'] == 2
+        assert decodes == []
+        return
+    arrs = _walks(2, T, 3)
+    arrs[1][:T] = arrs[1][0]           # CONST planes in chunk 0 alone
+    readers = [mt.decompress(c, s, device='cpu', quiet=True)
+               for c, s in _port_files(tmp_path_, arrs, T)]
+    last = 0 if case.endswith('one_column') else 2
+    try:
+        for got, arr in zip(mt.decompress_multi(readers, last_chunk=last),
+                            arrs):
+            assert np.array_equal(got, arr[:(last + 1) * T])
+    finally:
+        for r in readers:
+            r.close()
+    # Per-reader to_array: no decode holds chunks of both probes.
+    assert decodes and all(n <= last + 1 for n in decodes)

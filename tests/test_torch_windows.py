@@ -370,6 +370,34 @@ def test_cache_is_exported_and_takes_a_capacity(tmp_path):
         r.close()
 
 
+def test_a_cached_chunk_is_keyed_on_the_bytes_it_decoded(tmp_path,
+                                                         monkeypatch):
+    """A chunk rewritten in place after its payload was read is dropped
+    by ``adopt()``: its key holds the decoded payload's last bytes (the
+    CRC), not those of a later read of the file."""
+    arr, cbin, ch, T = _compress(tmp_path, 'fuse8_tail')
+    r = mt.decompress(cbin, ch, device='cpu', quiet=True)
+    real, read = tp._read_payload, []
+
+    def read_then_rewrite(reader, idx):
+        payload = real(reader, idx)
+        read.append(bytes(payload))
+        with open(cbin, 'r+b') as f:
+            f.seek(reader.chunk_offsets[idx + 1] - 1)
+            f.write(bytes([payload[-1] ^ 0xFF]))
+        return payload
+
+    monkeypatch.setattr(tp, '_read_payload', read_then_rewrite)
+    try:
+        cache = mt.DeviceChunkCache(r, capacity=2)
+        _same(cache.read_window(3, 9), arr[3:9])
+        assert len(read) == 1 and cache._cache[0][1][-1] == read[0][-4:]
+        cache.adopt(r)
+        assert not cache._cache
+    finally:
+        r.close()
+
+
 def test_jax_written_device_file_reads_the_same(tmp_path):
     """A file the JAX package wrote on ITS device route reads through the
     port's windows, and the port's device-written file through the JAX

@@ -1513,6 +1513,15 @@ def decompress_multi(readers, mesh=None, first_chunk=0, last_chunk=None):
     Falls back to per-reader ``to_array`` (each reader's own device, no
     mesh) when the probes cannot be merged, up front or at a batch the
     card declines. ``mesh`` must be a mesh or None (TypeError).
+
+    With tracing on (``utils.trace``), three counters say how a call
+    went: ``decode.multi_merged_chunks`` (readers x chunks of a call that
+    returns merged arrays), ``decode.multi_fallback_chunks`` (readers x
+    chunks of a call that ends in the per-reader fallback) and
+    ``decode.multi_recopied_bytes`` (the bytes the merged path copies
+    from a batch's host block into the probes' arrays: every decoded byte
+    of a range of several batches, none of a range of one, whose arrays
+    are views of its block).
     """
     assert readers
     devices = mesh_devices(mesh)
@@ -1558,10 +1567,14 @@ def decompress_multi(readers, mesh=None, first_chunk=0, last_chunk=None):
             block = dec.decode_batch(parsed, ns, mesh=shard).reshape(
                 len(readers), len(ids) * ns, -1)
             del parsed
+            count('decode.multi_recopied_bytes',
+                  block.nbytes if len(ids) < n_chunks else 0)
             for out, r, rows in zip(outs, readers, block):
                 out.put(rows.view(r.dtype), (ids[0] - first_chunk) * ns)
         else:
+            count('decode.multi_merged_chunks', len(readers) * n_chunks)
             return [o.out for o in outs]
+    count('decode.multi_fallback_chunks', len(readers) * n_chunks)
     return [r.to_array(first_chunk, last) for r in readers]
 
 

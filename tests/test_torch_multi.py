@@ -7,7 +7,7 @@ the port (``device='cpu'``: the kernels' plain twins) and the JAX package
 (Pallas in interpret mode) give the same arrays, equal to the sources
 (tolerance 0); probes that must not merge fall back per reader; the
 ValueErrors are the reference's. A spy on ``_decode_shards`` shows which
-calls merged.
+calls merged, and the counters that tracing keeps say how each call went.
 """
 
 import numpy as np
@@ -21,6 +21,7 @@ from mtscomp_tpu.parallel.pipeline import (  # noqa: E402
 import mtscomp_tpu_torch as mt  # noqa: E402
 import mtscomp_tpu_torch.config as mt_config  # noqa: E402
 from mtscomp_tpu_torch.parallel import pipeline as tp  # noqa: E402
+from mtscomp_tpu_torch.utils import trace  # noqa: E402
 
 from conftest import make_signal, to_int16, write_arr  # noqa: E402
 from test_transform_adapt import NC, SR, drifting_signal  # noqa: E402
@@ -213,3 +214,88 @@ def test_probes_follow_their_readers_device(tmp_path, device, decode_calls):
         assert decode_calls == ([] if device == 'none' else [4])
     finally:
         _close(port, jaxr)
+
+
+#: The counters ``decompress_multi`` keeps with tracing on.
+MERGED, FALLBACK, RECOPIED = ('decode.multi_merged_chunks',
+                              'decode.multi_fallback_chunks',
+                              'decode.multi_recopied_bytes')
+
+
+def _decline_call(monkeypatch, n):
+    """Make the ``n``-th ``supported()`` judgement decline its chunks."""
+    real, calls = tp.DeviceBatchDecoder.supported, []
+
+    def supported(self, parsed_list, n_samples):
+        calls.append(1)
+        return len(calls) != n and real(self, parsed_list, n_samples)
+    monkeypatch.setattr(tp.DeviceBatchDecoder, 'supported', supported)
+
+
+# name: (per-probe (source, compress options), the readers'
+# ``batch_chunks``, the ``supported()`` judgement declined or None, and
+# the counters a call leaves: merged chunks, fallback chunks, and the
+# recopied bytes as a share of the decoded bytes; None: not counted).
+COUNTED = {
+    # 3 x 3 chunks, one batch: the arrays are views of its block.
+    'one_batch': ([(_colored(p, 12, 3), dict(ans_seg_log2=12))
+                   for p in range(3)], 0, None, (9, None, 0)),
+    # A batch of 6 chunks over 3 probes: 2 + 1 chunks a probe, each
+    # probe's rows copied once more.
+    'several_batches': ([(_colored(p, 12, 3), dict(ans_seg_log2=12))
+                         for p in range(3)], 6, None, (9, None, 1)),
+    # The first batch merged and copied, the second declined (its first
+    # column, the third judgement): the call falls back per reader.
+    'declined_batch': ([(_colored(p, 12, 3), dict(ans_seg_log2=12))
+                        for p in range(3)], 6, 3, (None, 9, 2 / 3)),
+    # Another decode identity: the probes never merge.
+    'unmerged': ([(_colored(0), dict(ans_seg_log2=12)),
+                  (_colored(0), dict(ans_seg_log2=12, do_time_diff=False))],
+                 0, None, (None, 4, None)),
+}
+
+
+@pytest.mark.parametrize('name', sorted(COUNTED))
+def test_decompress_multi_counts_how_a_call_went(tmp_path, monkeypatch,
+                                                 name):
+    probes, batch_chunks, declined, want = COUNTED[name]
+    port, jaxr, arrs = _open_all(tmp_path, probes)
+    _close(port, jaxr)
+    port = [mt.decompress(tmp_path / ('p%d.cbin' % i), device='cpu',
+                          quiet=True, batch_chunks=batch_chunks)
+            for i in range(len(probes))]
+    if declined:
+        _decline_call(monkeypatch, declined)
+    trace.enable_tracing()
+    try:
+        trace.reset_stats()
+        outs = mt.decompress_multi(port)
+        counters = trace.counter_stats()
+    finally:
+        trace.enable_tracing(False)
+        _close(port)
+    for got, arr in zip(outs, arrs):
+        assert got.tobytes() == arr.tobytes() and got.shape == arr.shape
+    decoded = sum(a.nbytes for a in arrs)
+    merged, fallback, share = want
+    assert counters.get(MERGED) == merged
+    assert counters.get(FALLBACK) == fallback
+    assert counters.get(RECOPIED) == (None if share is None
+                                      else round(share * decoded))
+
+
+def test_decompress_multi_counts_nothing_untraced(tmp_path):
+    probes = COUNTED['several_batches'][0]
+    port, jaxr, arrs = _open_all(tmp_path, probes)
+    _close(port, jaxr)
+    port = [mt.decompress(tmp_path / ('p%d.cbin' % i), device='cpu',
+                          quiet=True, batch_chunks=6)
+            for i in range(len(probes))]
+    trace.enable_tracing(False)
+    trace.reset_stats()
+    try:
+        for got, arr in zip(mt.decompress_multi(port), arrs):
+            assert np.array_equal(got, arr)
+    finally:
+        _close(port)
+    assert trace.counter_stats() == {}
